@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of pyaudiorestoration_tpu for NVIDIA Hopper.
+
+Mirrors the JAX package's layout (``ops``, ``models``, ``pipelines``,
+``kernels``, ``utils``) so every function's counterpart is found by path.
+The JAX package is the reference; this package imports ``torch`` and never
+``jax``.  Importing the package imports nothing.
+"""

@@ -1,0 +1,593 @@
+"""Device-resident wow/flutter restoration on PyTorch/CUDA (counterpart of
+pyaudiorestoration_tpu/pipelines/respeeder_device.py, the ``respeed --fast``
+path).
+
+  read (native C++ codec, shared with the JAX package)
+   -> pilot-tone probe (host)
+   -> banded peak tracking -> speed curve centred with exact limbs  (device)
+   -> position plan in float64                                      (host)
+   -> banded windowed-sinc resample, kernel K1                      (device)
+   -> compaction of the padded grid                                 (device)
+   -> write
+
+Every stage has the JAX function's name, arguments and conventions, so the
+parity tests feed both the same inputs.  Public entries take ``device``
+("cuda" by default; "cpu" runs the kernels' plain PyTorch versions).  The
+fused single-dispatch plan, the batched takes and the streamed tier are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.sinc_banded import sinc_banded
+from ..models.trackers import masked_peak_refine
+from ..ops.fourier import get_window
+from ..utils.convert import plan_to_torch
+from ..utils.device import resolve_device
+
+__all__ = ["track_speed_device", "track_peaks_span", "banded_refined_chunk",
+           "normalize_speeds", "quantized_log_sums", "exact_log_center",
+           "inv_count_limbs", "log_center_for_band", "plan_positions",
+           "plan_positions_fast", "segment_grids", "fixed_order_cumsum",
+           "run_banded_sinc", "compact_output", "compact_padded_device",
+           "restore_device", "restore_file_fast"]
+
+
+# ---------------------------------------------------------------- tracking
+
+@functools.lru_cache(maxsize=16)
+def _banded_dft_matrix(n_fft: int, zeropad: int, lo: int, hi: int) -> np.ndarray:
+    """(n_fft, 2*(hi-lo)) real DFT matrix computing rFFT bins [lo, hi) of the
+    zero-padded transform — cos columns then sin columns, pre-scaled by the
+    reference's 1/sqrt(n_fft) norm."""
+    ang = -2.0 * np.pi * np.outer(np.arange(n_fft), np.arange(lo, hi)) / (n_fft * zeropad)
+    scale = 1.0 / np.sqrt(n_fft)
+    return np.concatenate([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32) * scale
+
+
+def _frames(xs, n_fft: int, step: int, count: int, window_name: str):
+    """Windowed frames (..., count, n_fft); frame p starts at xs[..., p*step]."""
+    window = torch.as_tensor(get_window(window_name, n_fft), device=xs.device)
+    return xs.unfold(-1, n_fft, step)[..., :count, :] * window
+
+
+def banded_refined_chunk(xs, nl, nu, n_fft: int, step: int, zeropad: int,
+                         window_name: str, band, chunk: int):
+    """Banded-DFT peak refinement over one chunk of frames.
+
+    ``xs``: (..., span) raw samples; ``nl``/``nu``: (..., chunk) absolute
+    bin limits.  The frames x (n_fft, 2*nb) product is a plain float32
+    ``torch.matmul`` (TF32 off, :func:`~..utils.device.pin_fp32`), the
+    counterpart of JAX's ``Precision.HIGHEST`` dot."""
+    lo, hi = int(band[0]), int(band[1])
+    nb = hi - lo
+    # float64 on the host (the float32 cos/sin times a float64 scale); cast
+    # to float32 as jnp.asarray does in the reference
+    dft = torch.as_tensor(_banded_dft_matrix(n_fft, zeropad, lo, hi),
+                          dtype=torch.float32, device=xs.device)
+    ri = torch.matmul(_frames(xs, n_fft, step, chunk, window_name), dft)
+    mag = torch.sqrt(ri[..., :nb] ** 2 + ri[..., nb:] ** 2) + 1e-7
+    return masked_peak_refine(mag, nl - lo, nu - lo, bin_offset=float(lo))
+
+
+def track_peaks_span(xp, NL, NU, n_frames: int, n_fft: int, step: int,
+                     zeropad: int = 1, window_name: str = "blackmanharris",
+                     chunk_frames: int = 4096, band=None):
+    """Refined (parabolic) peak bin per frame over an already-padded span:
+    frame t covers ``xp[t*step : t*step+n_fft]``.
+
+    ``band``: optional (lo, hi) bin bounds covering every [NL, NU) window plus
+    one neighbour; when given, the spectrum is the banded DFT product, else
+    the full rFFT of length ``n_fft*zeropad``.  Frames go through in chunks of
+    ``chunk_frames`` so memory stays bounded for long takes."""
+    if n_fft % step:
+        raise ValueError(f"step {step} must divide n_fft {n_fft}")
+    ratio = n_fft // step
+    n_chunks = -(-n_frames // chunk_frames)
+    span = (chunk_frames + ratio - 1) * step
+    xp2 = F.pad(xp.to(torch.float32),
+                (0, max(0, n_chunks * chunk_frames * step + span - xp.shape[0])))
+    pad_t = n_chunks * chunk_frames - n_frames
+    num_bins = n_fft * zeropad // 2 + 1
+    if band is not None:
+        lo = max(0, int(band[0]))
+        hi = min(num_bins, int(band[1]))
+    else:
+        lo, hi = 0, num_bins
+    NLp = F.pad(NL, (0, pad_t), value=lo + 1)
+    NUp = F.pad(NU, (0, pad_t), value=lo + 2)
+    refined = []
+    for c in range(n_chunks):
+        xs = xp2[c * chunk_frames * step: c * chunk_frames * step + span]
+        nl = NLp[c * chunk_frames: (c + 1) * chunk_frames]
+        nu = NUp[c * chunk_frames: (c + 1) * chunk_frames]
+        if band is not None:
+            refined.append(banded_refined_chunk(xs, nl, nu, n_fft, step, zeropad,
+                                                window_name, (lo, hi), chunk_frames))
+            continue
+        frames = _frames(xs, n_fft, step, chunk_frames, window_name)
+        spec = torch.fft.rfft(frames, n=n_fft * zeropad, dim=-1) / math.sqrt(n_fft)
+        mag = torch.abs(spec) + 1e-7
+        refined.append(masked_peak_refine(mag, nl - lo, nu - lo, bin_offset=float(lo)))
+    return torch.cat(refined)[:n_frames]
+
+
+def _reflect_pad(x, pad: int):
+    """``jnp.pad(x, pad, mode="reflect")`` for a 1-D tensor: the edge sample
+    is not repeated, and pads longer than the signal reflect again (period
+    2(n-1)), where ``F.pad(mode="reflect")`` refuses."""
+    n = x.shape[0]
+    i = torch.arange(-pad, n + pad, device=x.device)
+    if n == 1:
+        return x[torch.zeros_like(i)]
+    period = 2 * (n - 1)
+    i = torch.remainder(i, period)
+    return x[torch.where(i >= n, period - i, i)]
+
+
+def track_speed_device(x, NL, NU, n_fft: int, step: int, zeropad: int = 1,
+                       window_name: str = "blackmanharris",
+                       chunk_frames: int = 4096, band=None, frame_mask=None,
+                       inv_limbs=None):
+    """Reflect-centred framing + banded peak tracking + speed normalisation,
+    all on ``x``'s device.  Returns speeds (T,) centred on ~1.0."""
+    xp = _reflect_pad(x.to(torch.float32), n_fft // 2)
+    n_frames = (xp.shape[0] - n_fft) // step + 1
+    refined = track_peaks_span(xp, NL, NU, n_frames, n_fft, step, zeropad,
+                               window_name, chunk_frames, band)
+    return normalize_speeds(refined, center=log_center_for_band(band),
+                            frame_mask=frame_mask, inv_limbs=inv_limbs)
+
+
+def log_center_for_band(band):
+    """Static log2 pivot for the exact mean, derived from the band bound."""
+    if band is None:
+        return None
+    return float(np.log2(max((band[0] + band[1]) / 2.0, 2.0)))
+
+
+_INV_LN2_F32 = float(np.float32(1.0 / np.log(2.0)))
+
+
+def _f32(v: float) -> float:
+    """A Python float rounded to float32, as JAX rounds a weak-typed scalar."""
+    return float(np.float32(v))
+
+
+def _carry(hi, lo, base=4096.0):
+    """One base-4096 carry step on exact-integer float32 limbs."""
+    c = torch.floor(lo / base)
+    return hi + c, lo - c * base
+
+
+def quantized_log_sums(ls, center: float, mask=None):
+    """Exact integer sum of ``q = round((ls - center) * 2**16)`` as three
+    float32 base-4096 limbs (h2, h1, lo).  Every partial sum is an integer
+    below 2**24, so the limbs are the same in any order of summation: the
+    card's reductions give the JAX reference's limbs bit for bit.
+
+    ``ls`` may be float64 (see :func:`normalize_speeds`): ``ls - center``
+    is then rounded to float32 once, as the reference's fused
+    multiply-subtract rounds it.  ``center`` is taken as a float32, as JAX
+    takes a Python float."""
+    q = torch.round((ls - _f32(center)).to(torch.float32) * 65536.0)
+    if mask is not None:
+        q = q * mask
+    T = q.shape[-1]
+    qb = F.pad(q, (0, (-T) % (128 * 128)))
+    qb = qb.reshape(*q.shape[:-1], -1, 128, 128)
+    bs = torch.sum(qb, dim=-1)                  # block sums, exact (< 2**23)
+    h1, lo = _carry(torch.zeros_like(bs), bs)   # base-4096 digits per block
+    h1g = torch.sum(h1, dim=-1)                 # group stage, < 2**19
+    log_ = torch.sum(lo, dim=-1)
+    h2g, h1g = _carry(torch.zeros_like(h1g), h1g)
+    h2 = torch.sum(h2g, dim=-1)
+    h1 = torch.sum(h1g, dim=-1)
+    lo = torch.sum(log_, dim=-1)
+    h1, lo = _carry(h1, lo)
+    h2, h1 = _carry(h2, h1)
+    return h2, h1, lo
+
+
+def exact_log_center(limbs, count: int, center: float, inv_limbs=None):
+    """Mean of the quantized log speeds from exact limb sums, with the JAX
+    reference's fixed division expression (float32 operands)."""
+    h2, h1, lo = limbs
+    h1, lo = _carry(h1, lo)
+    h2, h1 = _carry(h2, h1)
+    inv = 1.0 / 65536.0
+    if inv_limbs is not None:
+        c0, c1, c2 = inv_limbs[..., 0], inv_limbs[..., 1], inv_limbs[..., 2]
+    else:
+        c0, c1, c2 = 4096.0 * 4096.0 / count, 4096.0 / count, 1.0 / count
+    return center + (h2 * c0 + h1 * c1 + lo * c2) * inv
+
+
+def inv_count_limbs(counts):
+    """Host: frame counts -> the (..., 3) float32 1/count limb factors of
+    :func:`exact_log_center`, divided in float64 as for a static count."""
+    c = np.asarray(counts, np.float64)
+    return np.stack([4096.0 * 4096.0 / c, 4096.0 / c, 1.0 / c],
+                    axis=-1).astype(np.float32)
+
+
+def normalize_speeds(refined, center: float = None, frame_mask=None,
+                     inv_limbs=None):
+    """Refined peak bins -> speed curve centred on ~1.0 (TraceLine
+    normalisation, markers.py:190-192).  ``center`` enables the exact
+    partition-invariant mean; ``None`` keeps the plain float mean.
+    ``frame_mask``/``inv_limbs`` restrict the mean to a padded take's frames."""
+    # jnp.log2(x) is log(x) / ln 2, which XLA turns into log(x) times the
+    # float32 constant 1/ln 2 and fuses with the subtraction of the pivot or
+    # mean into one FMA: the centred value is rounded once.  torch.log2 and
+    # a separately rounded product each differ on ~20% of bins by an ulp of
+    # log2(bin) (~1e-6 at bin 500); through the quantized mean and the
+    # centring that is a biased ~6e-7 relative speed error, which the plan
+    # accumulates over a take.  So the product is kept exact in float64 and
+    # each centring rounds once to float32.  log and pow are evaluated in
+    # float64 and rounded to float32: that is the same value on the card and
+    # on the CPU (their float32 log and pow differ by an ulp on ~1% of
+    # inputs, enough to move the plan), and XLA's float32 log and pow agree
+    # with it on ~99% and ~99.9% of inputs.
+    f64 = torch.float64
+    ls = torch.log(torch.clamp(refined, min=1.0).to(f64)).to(torch.float32).to(f64)
+    ls = ls * _INV_LN2_F32
+    if center is None:
+        mean = torch.mean(ls.to(torch.float32))
+    else:
+        mean = exact_log_center(
+            quantized_log_sums(ls, center, mask=frame_mask),
+            ls.shape[-1], center, inv_limbs=inv_limbs)
+    centred = (ls - mean.to(f64)).to(torch.float32)
+    return torch.pow(2.0, centred.to(f64)).to(torch.float32)
+
+# ------------------------------------------------------------ host plan
+
+def plan_positions(speeds_np, hop: int, num_input_samples: int, t0_samples: float = 0.0):
+    """Host-side position plan from a frame-rate speed curve (float64, tiny).
+
+    Returns a dict with per-segment output counts ``n``, float64 base offsets
+    split into (int32, float32), segment output starts, n_out and max_n.
+    Mirrors the reference's dithering exactly (resampling.py:107-137) via the
+    rounded-cumsum closed form.
+    """
+    speeds = np.asarray(speeds_np, dtype=np.float64)
+    T = len(speeds) - 1
+    n_raw = hop * (speeds[:-1] + speeds[1:]) / 2.0
+    cum = np.cumsum(n_raw)
+    n = np.diff(np.round(np.concatenate([[0.0], cum]))).astype(np.int64)
+    n = np.maximum(n, 0)
+    max_n = int(n.max()) if T else 0
+    # exact segment advance A_i = sum_k 1/bs_(i,k) on the padded grid (f64)
+    k = np.arange(max_n)[None, :]
+    denom = np.maximum(n[:, None] - 1, 1).astype(np.float64)
+    bs = speeds[:-1, None] + k / denom * (speeds[1:, None] - speeds[:-1, None])
+    inv = np.where(k < n[:, None], 1.0 / bs, 0.0)
+    A = inv.sum(axis=1)
+    base = t0_samples + np.concatenate([[0.0], np.cumsum(A)[:-1]])
+    starts = np.concatenate([[0], np.cumsum(n)[:-1]])
+    # end trim (reference: nearest position to the input end)
+    ends = base + A
+    n_out = int(n.sum())
+    over = np.nonzero(ends >= num_input_samples)[0]
+    if len(over):
+        i = over[0]
+        # refine inside segment i: count positions <= crossing
+        rel = np.cumsum(inv[i])
+        j = int(np.argmin(np.abs(base[i] + rel[: max(1, n[i])] - num_input_samples)))
+        n_out = int(starts[i] + j)
+    base_int = np.floor(base).astype(np.int32)
+    base_frac = (base - base_int).astype(np.float32)
+    # drift bound for the banded kernel: max |anchor - output index| in-segment
+    rel = np.cumsum(inv, axis=1) + base_frac[:, None]
+    m = np.where(k < n[:, None], np.abs(np.round(rel) - k), 0)
+    drift = int(m.max()) + 1 if m.size else 1
+    return {
+        "n": n.astype(np.int32), "base_int": base_int, "base_frac": base_frac,
+        "starts": starts.astype(np.int64), "max_n": max_n, "n_out": n_out,
+        "drift": drift,
+    }
+
+
+def plan_positions_fast(speeds_np, hop: int, num_input_samples: int,
+                        t0_samples: float = 0.0):
+    """O(n_segments) position plan via the exact digamma closed form.
+
+    The per-segment advance ``A_i = sum_k 1/(a + c k)`` equals
+    ``(psi(a/c + n) - psi(a/c)) / c`` exactly (digamma recurrence), so the
+    5M-element reciprocal grid of :func:`plan_positions` collapses to two
+    digamma evaluations per segment.  Same outputs (float64 parity ~1e-9).
+    """
+    from scipy.special import digamma
+
+    speeds = np.asarray(speeds_np, dtype=np.float64)
+    n_raw = hop * (speeds[:-1] + speeds[1:]) / 2.0
+    cum = np.cumsum(n_raw)
+    n = np.diff(np.round(np.concatenate([[0.0], cum]))).astype(np.int64)
+    n = np.maximum(n, 0)
+    max_n = int(n.max()) if len(n) else 0
+    a = speeds[:-1].copy()
+    b = speeds[1:].copy()
+    # use the positive-slope orientation so digamma args stay positive
+    swap = b < a
+    a2 = np.where(swap, b, a)
+    b2 = np.where(swap, a, b)
+    denom = np.maximum(n - 1, 1)
+    c = (b2 - a2) / denom
+    tiny = np.abs(c) < 1e-12
+    c_safe = np.where(tiny, 1.0, c)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        A_slope = (digamma(a2 / c_safe + n) - digamma(a2 / c_safe)) / c_safe
+    A = np.where(tiny | (n <= 1), np.where(n >= 1, n / a2, 0.0), A_slope)
+    # n == 1 single-sample segments evaluate bs at k=0 -> 1/a (original a!)
+    one = n == 1
+    if one.any():
+        A[one] = 1.0 / a[one]
+    base = t0_samples + np.concatenate([[0.0], np.cumsum(A)[:-1]])
+    starts = np.concatenate([[0], np.cumsum(n)[:-1]])
+    ends = base + A
+    n_out = int(n.sum())
+    over = np.nonzero(ends >= num_input_samples)[0]
+    if len(over):
+        i = over[0]
+        k = np.arange(max(1, n[i]))
+        bs = speeds[i] + k / max(n[i] - 1, 1) * (speeds[i + 1] - speeds[i])
+        rel = np.cumsum(1.0 / bs)
+        j = int(np.argmin(np.abs(base[i] + rel - num_input_samples)))
+        n_out = int(starts[i] + j)
+    base_int = np.floor(base).astype(np.int32)
+    base_frac = (base - base_int).astype(np.float32)
+    # analytic drift bound: |anchor - k| <= max_n * max|1/speed - 1| + 2
+    dmax = float(np.max(np.abs(1.0 / speeds - 1.0))) if len(speeds) else 0.0
+    drift = int(np.ceil(max_n * dmax)) + 2
+    return {
+        "n": n.astype(np.int32), "base_int": base_int, "base_frac": base_frac,
+        "starts": starts.astype(np.int64), "max_n": max_n, "n_out": n_out,
+        "drift": drift,
+    }
+
+
+def _drift_bucket(drift: int) -> int:
+    """Power-of-two bucket (>= 8) of a plan's drift bound, as the JAX tiers
+    bucket it to keep their compile caches warm."""
+    d = 8
+    while d < drift:
+        d *= 2
+    return d
+
+
+# ------------------------------------------------------------ banded sinc
+
+def fixed_order_cumsum(x, base: int = 16):
+    """Float32 cumsum over the last axis in one fixed order: sequential
+    inside ``base``-element blocks, block totals scanned the same way
+    recursively and added back.  That is the order of XLA's CPU cumsum, so
+    the sinc grids are bit-identical to the JAX reference's on the CPU, and
+    the same on every run on the card (``torch.cumsum`` adds in float64 on
+    the CPU and in a scan order of its own on CUDA; the grids' ``rel`` sums
+    ~max_n terms, where a few ulps are ~1e-4 samples of position)."""
+    n = x.shape[-1]
+    if n <= base:
+        cols = list(torch.unbind(x, dim=-1))
+        for i in range(1, n):
+            cols[i] = cols[i - 1] + cols[i]
+        return torch.stack(cols, dim=-1) if n else x
+    nb = -(-n // base)
+    xb = F.pad(x, (0, nb * base - n)).reshape(*x.shape[:-1], nb, base)
+    local = fixed_order_cumsum(xb, base)
+    carry = fixed_order_cumsum(local[..., -1], base)
+    excl = F.pad(carry[..., :-1], (1, 0))
+    return (local + excl[..., None]).reshape(*x.shape[:-1], nb * base)[..., :n]
+
+
+def segment_grids(s_lo, s_hi, nn, bf, max_n: int):
+    """Per-segment block-speed / position grids (the reference's lerped block
+    speeds, resampling.py:107-119).  Returns (bs, rel, in_seg): (T, max_n)
+    lerped block speeds, positions relative to the integer window anchor,
+    and the validity mask."""
+    dev = s_lo.device
+    kf = torch.arange(max_n, dtype=torch.float32, device=dev)[None, :]
+    ki = torch.arange(max_n, dtype=torch.int32, device=dev)[None, :]
+    denom = torch.clamp(nn[:, None] - 1, min=1).to(torch.float32)
+    bs = s_lo[:, None] + kf / denom * (s_hi[:, None] - s_lo[:, None])
+    in_seg = ki < nn[:, None]
+    inv = torch.where(in_seg, 1.0 / bs, 0.0)
+    rel = fixed_order_cumsum(inv) + bf[:, None]
+    return bs, rel, in_seg
+
+
+def _flatten_takes(xb, speeds, nn, bi, bf, max_n: int, nt: int, drift: int):
+    """Concatenate a batch of rows (B, n) with a zero guard between them wide
+    enough that no sinc window crosses into the next row, and flatten every
+    per-segment plan array, offsetting anchors by the row stride."""
+    B, n = xb.shape
+    guard = max_n + 2 * (nt + drift)
+    R = n + guard
+    sig_flat = F.pad(xb, (0, guard)).reshape(B * R)
+    offs = (torch.arange(B, dtype=torch.int32, device=xb.device) * R)[:, None]
+    return (sig_flat, speeds[:, :-1].reshape(-1), speeds[:, 1:].reshape(-1),
+            nn.reshape(-1), (bi + offs).reshape(-1), bf.reshape(-1))
+
+
+SEG_TILE = 4096
+
+
+def segment_chunks(flat, max_n: int, seg_tile: int = SEG_TILE):
+    """Yield K1's inputs ``(base_int, bs, rel, in_seg)`` over the flattened
+    segment axis in ``seg_tile`` chunks, so the (chunk, max_n) grids bound
+    memory whatever the take length."""
+    _, s_lo, s_hi, n_flat, bi_flat, bf_flat = flat
+    for a in range(0, n_flat.shape[0], seg_tile):
+        b = a + seg_tile
+        yield (bi_flat[a:b],) + segment_grids(s_lo[a:b], s_hi[a:b], n_flat[a:b],
+                                              bf_flat[a:b], max_n)
+
+
+def _sinc_segments_backend(flat, max_n: int, nt: int, drift: int):
+    """Run K1 over every chunk of :func:`segment_chunks`."""
+    sig_flat = flat[0]
+    out = [sinc_banded(sig_flat, bi, bs, rel, in_seg, nt, drift)
+           for bi, bs, rel, in_seg in segment_chunks(flat, max_n)]
+    if not out:
+        return torch.zeros((0, max_n), dtype=torch.float32, device=sig_flat.device)
+    return torch.cat(out)
+
+
+def run_banded_sinc(sig, speeds, n, base_int, base_frac, max_n: int,
+                    nt: int, drift: int):
+    """Banded sinc for a (C, n) or (n,) signal through one shared plan.
+    Channels flatten into the segment axis (one kernel stream), as the JAX
+    Pallas path does.  Returns (C, T, max_n) or (T, max_n)."""
+    x = sig if sig.dim() == 2 else sig[None]
+    C = x.shape[0]
+    flat = _flatten_takes(
+        x, speeds.expand(C, -1), n.expand(C, -1), base_int.expand(C, -1),
+        base_frac.expand(C, -1), max_n, nt, drift)
+    out = _sinc_segments_backend(flat, max_n, nt, drift).reshape(C, -1, max_n)
+    return out if sig.dim() == 2 else out[0]
+
+
+# ------------------------------------------------------------ compaction
+
+def compact_output(padded_np, plan):
+    """Host: padded (T, max_n) -> flat (n_out,) using the segment counts."""
+    T, max_n = padded_np.shape
+    k = np.arange(max_n)[None, :]
+    mask = k < plan["n"][:, None]
+    return padded_np[mask][: plan["n_out"]].astype(np.float32)
+
+
+def compact_padded_device(padded, n, out_len: int):
+    """Device compaction: padded (..., T, max_n) + segment counts ``n`` (T,)
+    -> (contiguous (..., out_len), n_out).
+
+    Output sample ``j`` lives in the last segment whose start is <= j: each
+    segment's index and start are scattered (``amax``, so zero-count
+    duplicates resolve to the last segment) at its start and filled forward
+    with a cumulative max, all in int32 as the JAX reference does.  It moves
+    the same float32 values, so it is bit-exact; entries past ``n_out`` are
+    zero.  Starts at or past ``out_len`` are dropped (JAX's ``mode="drop"``).
+    """
+    T, max_n = padded.shape[-2:]
+    dev = padded.device
+    csum = torch.cumsum(n.to(torch.int32), dim=0, dtype=torch.int32)
+    n_out = csum[-1]
+    off = F.pad(csum[:-1], (1, 0))  # segment starts
+    keep = off < out_len
+    idx = off[keep].to(torch.int64)
+    zeros = torch.zeros(out_len, dtype=torch.int32, device=dev)
+    t_at = zeros.scatter_reduce(
+        0, idx, torch.arange(T, dtype=torch.int32, device=dev)[keep], reduce="amax")
+    o_at = zeros.scatter_reduce(0, idx, off[keep], reduce="amax")
+    t = torch.cummax(t_at, dim=0).values
+    j = torch.arange(out_len, dtype=torch.int32, device=dev)
+    k = torch.clamp(j - torch.cummax(o_at, dim=0).values, 0, max_n - 1)
+    flat = padded.reshape(*padded.shape[:-2], T * max_n)
+    out = flat[..., t.to(torch.int64) * max_n + k]
+    return torch.where(j < n_out, out, 0.0), n_out
+
+
+# ------------------------------------------------------------ entry points
+
+def _band_limits(f0_hz, tolerance_st, fft_size, zeropad, sr):
+    """Fixed NL/NU bin band around a target frequency (semitone tolerance)."""
+    num_bins = fft_size * zeropad // 2 + 1
+    tol = tolerance_st / 12.0
+    NL = max(1, min(num_bins - 1,
+                    int(round(max(1.0, f0_hz * 2 ** -tol) * fft_size * zeropad / sr))))
+    NU = max(1, min(num_bins - 1,
+                    int(round(min(sr / 2, f0_hz * 2 ** tol) * fft_size * zeropad / sr))))
+    return NL, NU
+
+
+def _probe_f0(x, sr):
+    """Strongest-bin pilot-tone probe over the first ~2^18 samples."""
+    probe = np.asarray(x[: min(len(x), 1 << 18)], dtype=np.float32)
+    spec = np.abs(np.fft.rfft(probe * np.hanning(len(probe))))
+    return float(np.argmax(spec[10:]) + 10) / len(probe) * sr
+
+
+def _restore_padded(mono, sig, sr: int, f0_hz: float, tolerance_st: float,
+                    fft_size: int, fft_overlap: int, zeropad: int,
+                    sinc_quality: int):
+    """Track ``mono`` (n,), plan on the host, resample ``sig`` ((n,) or
+    (C, n)) through the shared curve.  Returns (padded, plan)."""
+    dev = mono.device
+    hop = fft_size // fft_overlap
+    n = int(mono.shape[0])
+    n_frames = (n + (fft_size // 2) * 2 - fft_size) // hop + 1
+    NL, NU = _band_limits(f0_hz, tolerance_st, fft_size, zeropad, sr)
+    NLs = torch.full((n_frames,), NL, dtype=torch.int32, device=dev)
+    NUs = torch.full((n_frames,), NU, dtype=torch.int32, device=dev)
+    speeds = track_speed_device(mono, NLs, NUs, fft_size, hop, zeropad,
+                                band=(NL - 1, NU + 1))
+    speeds_np = speeds.cpu().numpy()  # ~T floats, the only mid-path download
+    plan = plan_positions_fast(speeds_np, hop, n)
+    p = plan_to_torch(plan, dev)
+    padded = run_banded_sinc(sig, speeds, p["n"], p["base_int"], p["base_frac"],
+                             p["max_n"], int(sinc_quality), _drift_bucket(p["drift"]))
+    return padded, plan
+
+
+def restore_device(sig, sr: int, f0_hz: float, tolerance_st: float = 1.0,
+                   fft_size: int = 4096, fft_overlap: int = 8, zeropad: int = 2,
+                   sinc_quality: int = 50, device="cuda"):
+    """Device-resident restoration of a mono signal (n,) around a fixed
+    target frequency.  Returns (padded (T, max_n) tensor, host plan)."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(sig, dtype=torch.float32, device=dev)
+    return _restore_padded(x, x, sr, f0_hz, tolerance_st, fft_size,
+                           fft_overlap, zeropad, sinc_quality)
+
+
+def restore_file_fast(audio_path, f0_hz=None, tolerance_st: float = 1.0,
+                      fft_size: int = 4096, fft_overlap: int = 8, zeropad: int = 2,
+                      sinc_quality: int = 50, suffix: str = "", channel: int = 0,
+                      use_channels=None, stream="auto",
+                      stream_threshold_bytes: int = 1 << 30, device="cuda"):
+    """File-to-file wow/flutter fix through the device pipeline.
+
+    Tracks on ``channel``, resamples all ``use_channels`` (default: all)
+    through the shared speed curve (the reference's multi-channel export
+    contract, resampling.py:211-231).  Auto-detects the pilot tone when
+    ``f0_hz`` is None.  Returns the output path.
+
+    Takes that need the streamed tier (``stream=True``, a decoded size over
+    ``stream_threshold_bytes``, or an output past the int32 sample cap) raise
+    ``NotImplementedError``: that tier is not ported yet.
+    """
+    from pyaudiorestoration_tpu.utils import audio_io, streaming
+
+    dev = resolve_device(device)
+    # int32 sample counts cap the in-memory path at 2**31 samples
+    # (compact_padded_device); longer takes belong to the streamed tier
+    int32_guard = streaming.decoded_bytes(audio_path) // 4 > (1 << 31) // 2
+    if int32_guard or streaming.should_stream(audio_path, stream,
+                                              stream_threshold_bytes):
+        raise NotImplementedError(
+            "this take needs the streamed tier (restore_file_streamed), "
+            "which the PyTorch port does not have yet")
+
+    signal, sr, num_channels = audio_io.read_file(audio_path)
+    channels = list(use_channels) if use_channels else list(range(num_channels))
+    if f0_hz is None:
+        f0_hz = _probe_f0(signal[:, channel], sr)
+    sig = torch.as_tensor(np.ascontiguousarray(signal[:, channels].T), device=dev)
+    if channel in channels:  # the tracking channel is already on the device
+        mono = sig[channels.index(channel)]
+    else:
+        mono = torch.as_tensor(np.ascontiguousarray(signal[:, channel]), device=dev)
+    padded, plan = _restore_padded(mono, sig, sr, f0_hz, tolerance_st, fft_size,
+                                   fft_overlap, zeropad, sinc_quality)
+    out_dev, _ = compact_padded_device(
+        padded, torch.as_tensor(plan["n"], device=dev), int(plan["n_out"]))
+    out = out_dev.T.contiguous().cpu().numpy()
+    return audio_io.write_file(audio_path, out, sr, len(channels),
+                               suffix=f"_res{suffix}")

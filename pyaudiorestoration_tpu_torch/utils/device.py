@@ -1,0 +1,34 @@
+"""Device choice and the port's float32 policy.
+
+Every public entry takes an explicit ``device``.  The default is ``"cuda"``
+and it raises when there is no card: the port never falls back to the CPU
+on its own.  ``"cpu"`` runs the plain PyTorch versions of the kernels and is
+taken only when asked for (the parity tests do).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pin_fp32() -> None:
+    """True float32 everywhere: the JAX tracking product runs at
+    ``Precision.HIGHEST``, and TF32's ~3 decimal digits would move the speed
+    curve by far more than the ~5e-7 that flips a dither rounding."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """Validate ``device`` ("cuda", "cuda:N" or "cpu") and pin the fp32
+    policy.  Raises when CUDA is asked for and no card is present."""
+    pin_fp32()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch sees no CUDA card; "
+                "pass device='cpu' to run the plain PyTorch path")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
+    return dev

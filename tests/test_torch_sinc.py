@@ -1,0 +1,208 @@
+"""K1, the banded windowed-sinc resampler: the port's plain PyTorch version
+against the JAX Pallas kernel (interpret mode) and the XLA tier, a float64
+ground truth of its weights, and a numpy model of the CUDA kernel's
+direct-tap rule.  The CUDA kernel itself runs only on a card; chip_smoke.py
+holds it against the plain version there."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyaudiorestoration_tpu.kernels import sinc_pallas
+from pyaudiorestoration_tpu.pipelines import respeeder_device as rj
+from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+from pyaudiorestoration_tpu_torch.utils.convert import plan_to_torch
+
+torch.set_num_threads(2)
+
+
+def _wow_case(sr=8000, hop=256, seconds=2, depth=0.03, seed=7):
+    """test_pallas_kernels.py:10-32: noise through a wow plan."""
+    n = seconds * sr
+    rng = np.random.default_rng(seed)
+    sig = (rng.standard_normal(n) * 0.3).astype(np.float32)
+    t = np.arange(n // hop) * hop / sr
+    speeds = 1.0 + depth * np.sin(2 * np.pi * 1.3 * t)
+    plan = rj.plan_positions_fast(speeds, hop, n)
+    return sig, speeds.astype(np.float32), plan, rt._drift_bucket(plan["drift"])
+
+
+def _unaligned_case():
+    """test_pallas_dma_unaligned_signal_length: len(sig) not 1024-aligned."""
+    rng = np.random.default_rng(3)
+    n = 32768 + 940
+    sig = (rng.standard_normal(n) * 0.3).astype(np.float32)
+    step = 128
+    T = n // step - 1
+    plan = {"n": np.full(T, step, np.int32),
+            "base_int": (np.arange(T) * step).astype(np.int32),
+            "base_frac": np.zeros(T, np.float32), "max_n": 140, "drift": 8}
+    return sig, np.ones(T + 1, np.float32), plan, 8
+
+
+def _torch_sinc(sig, speeds, plan, nt, drift):
+    p = plan_to_torch(plan, "cpu")
+    return rt.run_banded_sinc(torch.from_numpy(sig), torch.from_numpy(speeds),
+                              p["n"], p["base_int"], p["base_frac"], p["max_n"],
+                              nt, drift).numpy()
+
+
+@pytest.mark.parametrize("case,nt", [("wow", 30), ("unaligned", 8)])
+def test_plain_matches_jax_pallas_and_xla(case, nt):
+    sig, speeds, plan, drift = _wow_case() if case == "wow" else _unaligned_case()
+    max_n = int(plan["max_n"])
+    args = (jnp.asarray(sig), jnp.asarray(speeds), jnp.asarray(plan["n"]),
+            jnp.asarray(plan["base_int"]), jnp.asarray(plan["base_frac"]))
+    got = _torch_sinc(sig, speeds, plan, nt, drift)
+    xla = np.asarray(rj.sinc_banded_device(*args, max_n, nt, drift))
+    np.testing.assert_allclose(got, xla, atol=3e-5, rtol=0)
+    pallas = np.asarray(sinc_pallas.sinc_banded_pallas_dma_segments(
+        args[0], args[1][:-1], args[1][1:], *args[2:], max_n, nt, drift,
+        tile=8, interpret=True))
+    np.testing.assert_allclose(got, pallas, atol=3e-5, rtol=0)
+
+
+def test_two_channels_flatten_into_segments():
+    """run_banded_sinc flattens (C, n) into one segment axis with zero guard
+    bands (respeeder_device.py:727-736); each channel matches JAX's."""
+    sig, speeds, plan, drift = _wow_case(seconds=1, seed=11)
+    x = np.stack([sig, -0.5 * sig[::-1]]).astype(np.float32)
+    ref = np.asarray(rj.run_banded_sinc(
+        jnp.asarray(x), jnp.asarray(speeds), jnp.asarray(plan["n"]),
+        jnp.asarray(plan["base_int"]), jnp.asarray(plan["base_frac"]),
+        int(plan["max_n"]), 16, drift, backend="xla"))
+    got = _torch_sinc(x, speeds, plan, 16, drift)
+    assert got.shape == ref.shape == (2, len(plan["n"]), plan["max_n"])
+    np.testing.assert_allclose(got, ref, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("T,max_n", [(40, 140), (7, 563), (3, 5)])
+def test_segment_grids_bit_equal(T, max_n):
+    rng = np.random.default_rng(T)
+    s = (1 + 0.03 * rng.standard_normal(T + 1)).astype(np.float32)
+    nn = rng.integers(0, max_n + 1, T).astype(np.int32)
+    nn[0] = 0
+    bf = rng.uniform(0, 1, T).astype(np.float32)
+    ref = rj.segment_grids(jnp.asarray(s[:-1]), jnp.asarray(s[1:]),
+                           jnp.asarray(nn), jnp.asarray(bf), max_n)
+    got = rt.segment_grids(torch.from_numpy(s[:-1]), torch.from_numpy(s[1:]),
+                           torch.from_numpy(nn), torch.from_numpy(bf), max_n)
+    for r, g in zip(ref, got):
+        assert np.array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("L", [0, 1, 16, 17, 255, 563, 4200])
+def test_fixed_order_cumsum_matches_jnp_cumsum(L):
+    x = (1.0 / (1 + 0.03 * np.random.default_rng(L).standard_normal((9, L)))).astype(np.float32)
+    ref = np.asarray(jnp.cumsum(jnp.asarray(x), axis=1))
+    assert np.array_equal(rt.fixed_order_cumsum(torch.from_numpy(x)).numpy(), ref)
+
+
+def _weight_inputs(fc_case, nt=30, drift=8, max_n=140, tile=8, seed=3):
+    """test_pallas_kernels.py:109-163: adversarial cutoffs."""
+    U = nt + drift
+    rng = np.random.default_rng(seed)
+    fc_lo = 1.0 / (1.0 + (drift - 2) / max_n)
+    if fc_case == "one":
+        bs = np.ones((tile, max_n), np.float32)
+    elif fc_case == "floor":
+        bs = np.full((tile, max_n), fc_lo, np.float32)
+    else:
+        bs = (1.0 + 0.02 * rng.standard_normal((tile, max_n))).astype(np.float32)
+    k = np.arange(max_n, dtype=np.float64)[None, :]
+    rel = (k + rng.uniform(-drift + 1, drift - 1, (tile, max_n))).astype(np.float32)
+    buf = rng.standard_normal((tile, max_n + 2 * U)).astype(np.float32) * 0.3
+    return buf, bs, rel, nt, drift, max_n
+
+
+@pytest.mark.parametrize("fc_case", ["one", "floor", "mixed"])
+def test_shift_mac_weights_match_float64_ground_truth(fc_case):
+    buf, bs, rel, nt, drift, max_n = _weight_inputs(fc_case)
+    U = nt + drift
+    in_seg = torch.ones(bs.shape, dtype=torch.bool)
+    got = kb.sinc_shift_mac(torch.from_numpy(buf), torch.from_numpy(bs),
+                            torch.from_numpy(rel), in_seg, max_n, nt, drift).numpy()
+    fc = np.minimum(bs.astype(np.float64), 1.0)
+    k = np.arange(max_n)[None, :]
+    m = np.round(rel.astype(np.float64)) - k
+    shift = rel.astype(np.float64) - np.round(rel.astype(np.float64))
+    acc = np.zeros(bs.shape)
+    for v in range(2 * U):
+        jf = (v - U) - m
+        x = (jf - shift) * fc
+        w = np.sinc(x) * fc * (0.5 - 0.5 * np.cos(np.pi / nt * (jf + nt)))
+        w = np.where((jf >= -nt) & (jf < nt), w, 0.0)
+        acc += buf[:, v:v + max_n].astype(np.float64) * w
+    assert np.max(np.abs(got - acc)) < 1e-5
+
+
+def _direct_tap_model(sig, base_int, bs, rel, in_seg, nt, drift):
+    """numpy model of csrc/sinc_banded.cu: tap j of lane k reads window
+    position p = round(rel) + U + j, and counts only where p lies in
+    [k, k + 2U) and k < n_i."""
+    T, max_n = bs.shape
+    U = nt + drift
+    idx = (base_int.astype(np.int64) - U)[:, None] + np.arange(max_n + 2 * U)[None, :]
+    win = np.where((idx >= 0) & (idx < len(sig)), sig[np.clip(idx, 0, len(sig) - 1)], 0.0)
+    win = win.astype(np.float32)
+    k = np.arange(max_n)[None, :]
+    anchor = np.round(rel).astype(np.int64)  # half to even, as rintf
+    shift = rel - anchor.astype(np.float32)
+    fc = np.minimum(bs, np.float32(1.0))
+    m = anchor - k
+    rows = np.arange(T)[:, None]
+    acc = np.zeros(bs.shape, np.float32)
+    for j in range(-nt, nt):
+        ok = in_seg & (m + j >= -U) & (m + j < U)
+        p = np.clip(anchor + U + j, 0, max_n + 2 * U - 1)
+        x = (np.float32(j) - shift) * fc
+        hann = np.float32(0.5 - 0.5 * np.cos(np.float32(np.pi) * np.float32(j + nt) / np.float32(nt)))
+        w = np.sinc(x.astype(np.float64)).astype(np.float32) * fc * hann
+        acc += np.where(ok, win[rows, p] * w, np.float32(0.0))
+    return acc
+
+
+@pytest.mark.parametrize("contract", ["held", "broken"])
+def test_direct_tap_rule_equals_plain_version(contract):
+    """The CUDA kernel's formulation (direct taps with the window rule)
+    equals the shift-MAC plain version, also where |round(rel) - k| > drift
+    drops taps."""
+    rng = np.random.default_rng(5)
+    T, max_n, nt, drift = 12, 90, 10, 8
+    sig = (rng.standard_normal(4000) * 0.3).astype(np.float32)
+    base_int = rng.integers(-50, 3900, T).astype(np.int32)
+    bs = (1.0 + 0.05 * rng.standard_normal((T, max_n))).astype(np.float32)
+    spread = drift - 1 if contract == "held" else 3 * drift
+    rel = (np.arange(max_n)[None, :]
+           + rng.uniform(-spread, spread, (T, max_n))).astype(np.float32)
+    in_seg = np.arange(max_n)[None, :] < rng.integers(0, max_n + 1, T)[:, None]
+    plain = kb.sinc_banded(torch.from_numpy(sig), torch.from_numpy(base_int),
+                           torch.from_numpy(bs), torch.from_numpy(rel),
+                           torch.from_numpy(in_seg), nt, drift).numpy()
+    model = _direct_tap_model(sig, base_int, bs, rel, in_seg, nt, drift)
+    np.testing.assert_allclose(model, plain, atol=1e-5, rtol=0)
+    assert np.all(plain[~in_seg] == 0)
+
+
+def test_wrapper_uses_plain_version_on_cpu_and_checks_inputs():
+    sig, speeds, plan, drift = _wow_case(seconds=1)
+    p = plan_to_torch(plan, "cpu")
+    T = 16
+    bs, rel, in_seg = rt.segment_grids(torch.from_numpy(speeds[:T]),
+                                       torch.from_numpy(speeds[1:T + 1]), p["n"][:T],
+                                       p["base_frac"][:T], p["max_n"])
+    args = (torch.from_numpy(sig), p["base_int"][:T], bs, rel, in_seg)
+    before = kb.sinc_banded.launches
+    out = kb.sinc_banded(*args, 16, drift)
+    assert kb.sinc_banded.launches == before  # no kernel launch on the CPU
+    assert torch.equal(out, kb.sinc_banded_plain(*args, 16, drift))
+    with pytest.raises(ValueError):
+        kb.sinc_banded(args[0].double(), *args[1:], 16, drift)
+    with pytest.raises(ValueError):
+        kb.sinc_banded(args[0], args[1].long(), *args[2:], 16, drift)
+    with pytest.raises(ValueError):
+        kb.sinc_banded(*args[:4], in_seg.float(), 16, drift)
+    with pytest.raises(ValueError):
+        kb.sinc_banded(args[0], args[1], bs[:, :-1], *args[3:], 16, drift)
