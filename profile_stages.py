@@ -1,13 +1,17 @@
-"""Stage breakdown and device profile of the port's ``respeed --fast`` on one
+"""Stage breakdown and device profile of the port's wow/flutter paths on one
 CUDA card, on chip_smoke's 30 s, 192 kHz stereo take.
 
-    python3 profile_stages.py [--runs 5]
+    python3 profile_stages.py [--path fast|fused|batch] [--runs 5]
+
+``fast``: ``restore_file_fast`` (``respeed --fast``), file to file.
+``fused``: ``restore_fused_device`` on the stereo take (bench.py:130-133).
+``batch``: ``restore_fused_takes`` on 8 takes of it (bench.py:143-155).
+The fused paths run K1 (backend "pallas"), as the card's "auto" does.
 
 Prints the card's name and power limit, then the median wall milliseconds of
-each stage of ``restore_file_fast`` (a synchronize after each), then one
-``torch.profiler`` run of ``restore_file_fast``: its wall, the device's busy
-time (union of device events), its idle share of the wall, and the device
-time by kernel.  Imports no JAX.
+each stage (a synchronize after each), then one ``torch.profiler`` run of
+the path's entry: its wall, the device's busy time (union of device events),
+its idle share of the wall, and the device time by kernel.  Imports no JAX.
 """
 
 import argparse
@@ -22,82 +26,95 @@ import torch
 from scipy.io import wavfile
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import FFT, OVERLAP, QUALITY, SECONDS, SR, ZEROPAD, wow_take
+from chip_smoke import (DRIFT, FFT, MAX_N, OVERLAP, QUALITY, SECONDS, SR, ZEROPAD,
+                        wow_take)
+
+HOP = FFT // OVERLAP
 
 
-def stage_times(src, rt, plan_to_torch, audio_io, dev):
-    """One run of restore_file_fast's in-memory path, split into stages."""
-    t, last = {}, [time.perf_counter()]
-    start = last[0]
+class Stages:
+    """Wall milliseconds between marks, each after a synchronize."""
 
-    def mark(name):
+    def __init__(self):
+        self.t = {}
+        self.start = self.last = time.perf_counter()
+
+    def mark(self, name):
         torch.cuda.synchronize()
         now = time.perf_counter()
-        t[name] = (now - last[0]) * 1e3
-        last[0] = now
+        self.t[name] = (now - self.last) * 1e3
+        self.last = now
 
+    def done(self):
+        self.t["total"] = (time.perf_counter() - self.start) * 1e3
+        return self.t
+
+
+def fast_stages(src, rt, plan_to_torch, audio_io, dev):
+    """One run of restore_file_fast's in-memory path, split into stages."""
+    s = Stages()
     signal, sr, nch = audio_io.read_file(src)
-    mark("read")
+    s.mark("read")
     f0 = rt._probe_f0(signal[:, 0], sr)
-    mark("probe")
+    s.mark("probe")
     sig = torch.as_tensor(np.ascontiguousarray(signal.T), device=dev)
-    mark("upload")
-    hop = FFT // OVERLAP
+    s.mark("upload")
     n = len(signal)
-    n_frames = n // hop + 1
+    n_frames = n // HOP + 1
     NL, NU = rt._band_limits(f0, 1.0, FFT, ZEROPAD, sr)
     speeds = rt.track_speed_device(
         sig[0], torch.full((n_frames,), NL, dtype=torch.int32, device=dev),
         torch.full((n_frames,), NU, dtype=torch.int32, device=dev),
-        FFT, hop, ZEROPAD, band=(NL - 1, NU + 1))
-    mark("track")
-    plan = rt.plan_positions_fast(speeds.cpu().numpy(), hop, n)
+        FFT, HOP, ZEROPAD, band=(NL - 1, NU + 1))
+    s.mark("track")
+    plan = rt.plan_positions_fast(speeds.cpu().numpy(), HOP, n)
     p = plan_to_torch(plan, dev)
-    mark("plan")
+    s.mark("plan")
     padded = rt.run_banded_sinc(sig, speeds, p["n"], p["base_int"], p["base_frac"],
                                 p["max_n"], QUALITY, rt._drift_bucket(p["drift"]))
-    mark("sinc")
+    s.mark("sinc")
     out, _ = rt.compact_padded_device(padded, p["n"], int(plan["n_out"]))
-    mark("compact")
+    s.mark("compact")
     host = out.T.contiguous().cpu().numpy()
-    mark("download")
+    s.mark("download")
     audio_io.write_file(src, host, sr, nch, suffix="_res")
-    mark("write")
-    t["total"] = (time.perf_counter() - start) * 1e3
-    return t
+    s.mark("write")
+    return s.done()
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--runs", type=int, default=5)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_stages: torch sees no CUDA card")
-    from pyaudiorestoration_tpu.utils import audio_io  # the path's own codec
-    from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
-    from pyaudiorestoration_tpu_torch.utils.convert import plan_to_torch
-    from pyaudiorestoration_tpu_torch.utils.device import resolve_device
+def fused_stages(x_host, shared_curve, NLs, NUs, band, rt, kb, dev):
+    """One run of the fused path split into stages: rows of ``x_host`` are
+    the channels of one take (``shared_curve``, restore_fused_device) or
+    independent takes (restore_fused_takes), through K1."""
+    s = Stages()
+    x = torch.as_tensor(x_host, device=dev)
+    s.mark("upload")
+    rows = x[:1] if shared_curve else x
+    speeds = torch.stack([rt.track_speed_device(r, NLs, NUs, FFT, HOP, ZEROPAD,
+                                                band=band) for r in rows])
+    s.mark("track")
+    speeds, n, bi, bf = rt._plan_from_speeds(speeds, HOP, MAX_N, DRIFT)
+    s.mark("plan scans")
+    B = x.shape[0]
+    flat = rt._flatten_takes(x, speeds.expand(B, -1), n.expand(B, -1),
+                             bi.expand(B, -1), bf.expand(B, -1), MAX_N, QUALITY, DRIFT)
+    chunks = list(rt.segment_chunks(flat, MAX_N))
+    s.mark("grids")
+    out = torch.cat([kb.sinc_banded(flat[0], *c, QUALITY, DRIFT) for c in chunks])
+    s.mark("sinc")
+    out.cpu()
+    s.mark("download")
+    return s.done()
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0])
-    dev = resolve_device("cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        src = os.path.join(tmp, "take.wav")
-        wavfile.write(src, SR, wow_take(SR, SECONDS))
-        stage_times(src, rt, plan_to_torch, audio_io, dev)  # build and warm up
-        runs = [stage_times(src, rt, plan_to_torch, audio_io, dev)
-                for _ in range(args.runs)]
-        print(f"stages, ms (median of {args.runs}):")
-        for k in runs[0]:
-            print(f"  {k:9s} {statistics.median(r[k] for r in runs):9.3f}")
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            rt.restore_file_fast(src, fft_size=FFT, fft_overlap=OVERLAP,
-                                 zeropad=ZEROPAD, sinc_quality=QUALITY, device=dev)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+def device_profile(fn):
+    """One profiled run of ``fn``: wall, device busy time and idle share, and
+    the device time by kernel."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy, cur = 0.0, None
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
@@ -116,6 +133,71 @@ def main():
         acc[1] += 1
     for name, (us, count) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {us / 1e3:9.3f} ms  n={count:4d}  {name}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=["fast", "fused", "batch"], default="fast")
+    ap.add_argument("--runs", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_stages: torch sees no CUDA card")
+    from pyaudiorestoration_tpu.utils import audio_io  # the path's own codec
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+    from pyaudiorestoration_tpu_torch.utils.convert import plan_to_torch
+    from pyaudiorestoration_tpu_torch.utils.device import resolve_device
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0])
+    dev = resolve_device("cuda")
+    take = wow_take(SR, SECONDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        if args.path == "fast":
+            src = os.path.join(tmp, "take.wav")
+            wavfile.write(src, SR, take)
+
+            def stages():
+                return fast_stages(src, rt, plan_to_torch, audio_io, dev)
+
+            def entry():
+                rt.restore_file_fast(src, fft_size=FFT, fft_overlap=OVERLAP,
+                                     zeropad=ZEROPAD, sinc_quality=QUALITY, device=dev)
+        else:
+            NL, NU = rt._band_limits(rt._probe_f0(take[:, 0], SR), 1.0, FFT, ZEROPAD, SR)
+            frames = take.shape[0] // HOP + 1
+            NLs = torch.full((frames,), NL, dtype=torch.int32, device=dev)
+            NUs = torch.full((frames,), NU, dtype=torch.int32, device=dev)
+            band = (NL - 1, NU + 1)
+            if args.path == "fused":
+                x_host = np.ascontiguousarray(take.T)
+            else:
+                x_host = np.stack([take[:, 0] * (0.5 + 0.06 * i) for i in range(8)])
+            print(f"{args.path}: input {x_host.shape}, {x_host.nbytes / 1e6:.1f} MB")
+
+            def stages():
+                return fused_stages(x_host, args.path == "fused", NLs, NUs, band, rt,
+                                    kb, dev)
+
+            x_dev = torch.as_tensor(x_host, device=dev)
+
+            def entry():
+                if args.path == "fused":
+                    return rt.restore_fused_device(x_dev, NLs, NUs, FFT, HOP, ZEROPAD,
+                                                   MAX_N, QUALITY, DRIFT, backend="pallas",
+                                                   band=band, device=dev)
+                B = x_dev.shape[0]
+                return rt.restore_fused_takes(x_dev, NLs.expand(B, -1), NUs.expand(B, -1),
+                                              FFT, HOP, ZEROPAD, MAX_N, QUALITY, DRIFT,
+                                              backend="pallas", band=band, device=dev)
+        stages()  # build and warm up
+        runs = [stages() for _ in range(args.runs)]
+        print(f"stages, ms (median of {args.runs}):")
+        for k in runs[0]:
+            print(f"  {k:10s} {statistics.median(r[k] for r in runs):9.3f}")
+        entry()
+        device_profile(entry)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m pyaudiorestoration_tpu_torch respeed --fast <audio> [--device cuda]
+    python -m pyaudiorestoration_tpu_torch respeed-batch <audio>... [--device cuda]
 
-Only the ``respeed --fast`` path (the in-memory device pipeline) is ported;
-its flags and defaults are those of ``pyaudiorestoration_tpu``'s ``respeed``.
-The other respeed modes, ``--stream`` and ``.spd`` projects exit with a
-"not ported yet" error.
+Ported: ``respeed --fast`` (the in-memory device pipeline) and
+``respeed-batch --tier fused`` (independent takes on one card), with the
+flags and defaults of ``pyaudiorestoration_tpu``'s subcommands plus
+``--device``.  The other respeed modes, ``--stream``, ``.spd`` projects and
+``respeed-batch --tier fixed`` exit with a "not ported yet" error.
 """
 
 from __future__ import annotations
@@ -35,36 +37,66 @@ def build_parser():
                     help="target frequency for --fast tracking")
     sp.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+
+    sp = sub.add_parser("respeed-batch",
+                        help="wow/flutter fix of a batch of independent takes")
+    sp.add_argument("inputs", nargs="+")
+    sp.add_argument("--f0", type=float, default=None,
+                    help="pilot/target frequency to track (auto-probed when "
+                         "omitted)")
+    sp.add_argument("--fft-size", type=int, default=512)
+    sp.add_argument("--step", type=int, default=128)
+    sp.add_argument("--tier", default="fused", choices=["fused", "fixed"],
+                    help="fused = the device plan and banded sinc per take; "
+                         "fixed = the fixed-length linear tier (not ported yet)")
+    sp.add_argument("--sinc-quality", type=int, default=50)
+    sp.add_argument("--zeropad", type=int, default=1)
+    sp.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.input.endswith(".spd"):
-        return _not_ported("respeed of a .spd project")
-    if args.stream:
-        return _not_ported("respeed --stream (the streamed tier)")
-    if not args.fast:
-        return _not_ported("respeed without --fast (the portable trackers)")
-    from .pipelines import respeeder_device
-
+    run = _respeed_batch if args.cmd == "respeed-batch" else _respeed
     try:
-        out = respeeder_device.restore_file_fast(
-            args.input, f0_hz=args.f0, tolerance_st=args.tolerance,
-            fft_size=args.fft_size, fft_overlap=args.fft_overlap,
-            zeropad=args.zeropad, sinc_quality=args.sinc_quality,
-            suffix=args.suffix, device=args.device)
+        outs = run(args)
     except NotImplementedError as e:
         print(f"error: not ported yet: {e}", file=sys.stderr)
         return 2
-    print(json.dumps({"outputs": [out]}))
+    print(json.dumps({"outputs": outs}))
     return 0
 
 
-def _not_ported(what: str) -> int:
-    print(f"error: {what} is not ported yet; use python -m pyaudiorestoration_tpu",
-          file=sys.stderr)
-    return 2
+def _respeed(args):
+    if args.input.endswith(".spd"):
+        _not_ported("respeed of a .spd project")
+    if args.stream:
+        _not_ported("respeed --stream (the streamed tier)")
+    if not args.fast:
+        _not_ported("respeed without --fast (the portable trackers)")
+    from .pipelines import respeeder_device
+
+    return [respeeder_device.restore_file_fast(
+        args.input, f0_hz=args.f0, tolerance_st=args.tolerance,
+        fft_size=args.fft_size, fft_overlap=args.fft_overlap,
+        zeropad=args.zeropad, sinc_quality=args.sinc_quality,
+        suffix=args.suffix, device=args.device)]
+
+
+def _respeed_batch(args):
+    if args.tier == "fixed":
+        _not_ported("respeed-batch --tier fixed (the fixed-length tier)")
+    from .parallel import batch
+
+    return batch.restore_batch_files_fused(
+        args.inputs, args.f0, fft_size=args.fft_size,
+        fft_overlap=max(1, args.fft_size // args.step), zeropad=args.zeropad,
+        sinc_quality=args.sinc_quality, device=args.device)
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what}; use python -m pyaudiorestoration_tpu")
 
 
 if __name__ == "__main__":

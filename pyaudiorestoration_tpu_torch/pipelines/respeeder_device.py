@@ -1,6 +1,7 @@
 """Device-resident wow/flutter restoration on PyTorch/CUDA (counterpart of
-pyaudiorestoration_tpu/pipelines/respeeder_device.py, the ``respeed --fast``
-path).
+pyaudiorestoration_tpu/pipelines/respeeder_device.py).
+
+``respeed --fast`` (``restore_file_fast``):
 
   read (native C++ codec, shared with the JAX package)
    -> pilot-tone probe (host)
@@ -10,11 +11,17 @@ path).
    -> compaction of the padded grid                                 (device)
    -> write
 
+The fused entries (``restore_fused_device`` for one take,
+``restore_fused_takes`` for a batch of independent takes) keep the plan on
+the device: the float64 cumsums become exact (int32, float32 frac) split
+cumsums and fixed-order tree sums (``_plan_from_speeds``), and the sinc runs
+as K1 (backend ``"pallas"``) or as the gathered-window tier with K2
+(``"xla"``).
+
 Every stage has the JAX function's name, arguments and conventions, so the
 parity tests feed both the same inputs.  Public entries take ``device``
 ("cuda" by default; "cpu" runs the kernels' plain PyTorch versions).  The
-fused single-dispatch plan, the batched takes and the streamed tier are not
-ported yet.
+streamed tier is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.sinc_banded import sinc_banded
+from ..kernels.sinc_banded import gather_windows, sinc_banded, sinc_banded_gathered
 from ..models.trackers import masked_peak_refine
 from ..ops.fourier import get_window
 from ..utils.convert import plan_to_torch
@@ -36,8 +43,10 @@ __all__ = ["track_speed_device", "track_peaks_span", "banded_refined_chunk",
            "normalize_speeds", "quantized_log_sums", "exact_log_center",
            "inv_count_limbs", "log_center_for_band", "plan_positions",
            "plan_positions_fast", "segment_grids", "fixed_order_cumsum",
+           "segment_advances", "sinc_banded_segments", "sinc_banded_device",
            "run_banded_sinc", "compact_output", "compact_padded_device",
-           "restore_device", "restore_file_fast"]
+           "restore_device", "restore_fused_device", "restore_fused_takes",
+           "restore_file_fast"]
 
 
 # ---------------------------------------------------------------- tracking
@@ -420,9 +429,9 @@ SEG_TILE = 4096
 
 
 def segment_chunks(flat, max_n: int, seg_tile: int = SEG_TILE):
-    """Yield K1's inputs ``(base_int, bs, rel, in_seg)`` over the flattened
-    segment axis in ``seg_tile`` chunks, so the (chunk, max_n) grids bound
-    memory whatever the take length."""
+    """Yield the kernels' inputs ``(base_int, bs, rel, in_seg)`` over the
+    flattened segment axis in ``seg_tile`` chunks, so the (chunk, max_n)
+    grids bound memory whatever the take length."""
     _, s_lo, s_hi, n_flat, bi_flat, bf_flat = flat
     for a in range(0, n_flat.shape[0], seg_tile):
         b = a + seg_tile
@@ -430,21 +439,75 @@ def segment_chunks(flat, max_n: int, seg_tile: int = SEG_TILE):
                                               bf_flat[a:b], max_n)
 
 
-def _sinc_segments_backend(flat, max_n: int, nt: int, drift: int):
-    """Run K1 over every chunk of :func:`segment_chunks`."""
+def _cat_rows(rows, max_n: int, device):
+    if not rows:
+        return torch.zeros((0, max_n), dtype=torch.float32, device=device)
+    return torch.cat(rows)
+
+
+def sinc_banded_segments(sig, s_lo, s_hi, n, base_int, base_frac, max_n: int,
+                         nt: int = 50, drift: int = 32):
+    """The gathered-window tier over per-segment endpoint speeds: each chunk
+    of :func:`segment_chunks` gathers its (chunk, max_n + 2U) window buffer,
+    zero outside the signal, and runs K2 on it (K2's plain version on the
+    CPU).  Returns (T, max_n)."""
+    U = nt + drift
+    flat = (sig, s_lo, s_hi, n, base_int, base_frac)
+    return _cat_rows([
+        sinc_banded_gathered(gather_windows(sig, bi, max_n + 2 * U, U), bs, rel,
+                             in_seg, nt, drift)
+        for bi, bs, rel, in_seg in segment_chunks(flat, max_n)],
+        max_n, sig.device)
+
+
+def sinc_banded_device(sig, speeds, n, base_int, base_frac, max_n: int,
+                       nt: int = 50, drift: int = 32):
+    """The gathered-window tier for an (n,) or (C, n) signal through one
+    plan (a (T+1,) speed curve); channels run one after the other.  Returns
+    (T, max_n) or (C, T, max_n)."""
+    if sig.dim() == 2:
+        return torch.stack([sinc_banded_device(ch, speeds, n, base_int, base_frac,
+                                               max_n, nt, drift)
+                            for ch in sig])
+    return sinc_banded_segments(sig, speeds[:-1], speeds[1:], n, base_int,
+                                base_frac, max_n, nt, drift)
+
+
+def _sinc_backend(backend: str, device) -> str:
+    """Resolve a sinc backend.  ``"pallas"``: the flattened segments with
+    each window loaded inside the kernel, K1.  ``"xla"``: the gathered
+    window buffer, K2 on the card and its plain version on the CPU.
+    ``"auto"``: ``"pallas"`` for a CUDA tensor, ``"xla"`` for a CPU one (as
+    JAX picks the Pallas kernel on a TPU).  Any other value raises."""
+    if backend == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
+    if backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown sinc backend {backend!r} "
+                         "(use 'auto', 'pallas' or 'xla')")
+    return backend
+
+
+def _sinc_segments_backend(flat, max_n: int, nt: int, drift: int,
+                           backend: str = "pallas"):
+    """Banded sinc over the flattened segments of :func:`_flatten_takes`:
+    K1 over each chunk of :func:`segment_chunks`, or the gathered tier."""
     sig_flat = flat[0]
-    out = [sinc_banded(sig_flat, bi, bs, rel, in_seg, nt, drift)
-           for bi, bs, rel, in_seg in segment_chunks(flat, max_n)]
-    if not out:
-        return torch.zeros((0, max_n), dtype=torch.float32, device=sig_flat.device)
-    return torch.cat(out)
+    if _sinc_backend(backend, sig_flat.device) == "xla":
+        return sinc_banded_segments(*flat, max_n, nt, drift)
+    return _cat_rows([sinc_banded(sig_flat, bi, bs, rel, in_seg, nt, drift)
+                      for bi, bs, rel, in_seg in segment_chunks(flat, max_n)],
+                     max_n, sig_flat.device)
 
 
 def run_banded_sinc(sig, speeds, n, base_int, base_frac, max_n: int,
-                    nt: int, drift: int):
+                    nt: int, drift: int, backend: str = "auto"):
     """Banded sinc for a (C, n) or (n,) signal through one shared plan.
-    Channels flatten into the segment axis (one kernel stream), as the JAX
-    Pallas path does.  Returns (C, T, max_n) or (T, max_n)."""
+    Under ``"pallas"`` channels flatten into the segment axis (one K1
+    stream), as the JAX Pallas path does; under ``"xla"`` each channel runs
+    the gathered tier.  Returns (C, T, max_n) or (T, max_n)."""
+    if _sinc_backend(backend, sig.device) == "xla":
+        return sinc_banded_device(sig, speeds, n, base_int, base_frac, max_n,
+                                  nt, drift)
     x = sig if sig.dim() == 2 else sig[None]
     C = x.shape[0]
     flat = _flatten_takes(
@@ -452,6 +515,157 @@ def run_banded_sinc(sig, speeds, n, base_int, base_frac, max_n: int,
         base_frac.expand(C, -1), max_n, nt, drift)
     out = _sinc_segments_backend(flat, max_n, nt, drift).reshape(C, -1, max_n)
     return out if sig.dim() == 2 else out[0]
+
+
+# ------------------------------------------------------------ device plan
+
+def _tree_sum_last(x):
+    """Fixed-order binary-tree sum over the last axis by explicit adds: pad
+    to even at each level, then add the even and odd halves.  A library
+    reduction may add in any order (XLA's did, per enclosing program, and
+    moved ``base_frac`` by ~2.7e-4); this DAG is the same everywhere, so the
+    plan is bit-deterministic on the card and equal to the JAX reference's
+    on the CPU."""
+    while x.shape[-1] > 1:
+        if x.shape[-1] % 2:
+            x = F.pad(x, (0, 1))
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def segment_advances(s_lo, s_hi, n, max_n: int, seg_chunk: int = 32768):
+    """Exact per-segment input advances ``A_i = n_i + sum_k (1/bs_ik - 1)``
+    on the padded grid, ``seg_chunk`` rows at a time so memory holds one
+    (seg_chunk, max_n) reciprocal grid; each row's value is the same
+    whatever the chunk.  ``inv - 1`` is exact for inv in [0.5, 2]
+    (Sterbenz), so the tree sum only rounds the small residual.
+
+    The lerped speed is rounded once, as a fused multiply-add: XLA's CPU
+    backend contracts ``lo + k/denom * (hi - lo)`` into one inside the
+    jitted plan, which moves ~3 % of the grid by an ulp and ~0.4 % of the
+    advances.  A product of two float32 is exact in float64, so one float64
+    add and one rounding to float32 give the fused result."""
+    dev = s_lo.device
+    f64 = torch.float64
+    kf = torch.arange(max_n, dtype=torch.float32, device=dev)[None, :]
+    ki = torch.arange(max_n, dtype=torch.int32, device=dev)[None, :]
+    out = []
+    for a in range(0, n.shape[0], seg_chunk):
+        lo, hi, nn = s_lo[a:a + seg_chunk], s_hi[a:a + seg_chunk], n[a:a + seg_chunk]
+        denom = torch.clamp(nn[:, None] - 1, min=1).to(torch.float32)
+        bs = ((kf / denom).to(f64) * (hi - lo)[:, None].to(f64)
+              + lo[:, None].to(f64)).to(torch.float32)
+        valid = ki < nn[:, None]
+        inv = torch.where(valid, 1.0 / bs, 0.0)
+        e = torch.where(valid, inv - 1.0, 0.0)
+        out.append(nn.to(torch.float32) + _tree_sum_last(e))
+    if not out:
+        return torch.zeros(0, dtype=torch.float32, device=dev)
+    return torch.cat(out)
+
+
+def _split_cumsum_exclusive(x, block: int = 1024, sub: int = 32):
+    """Exclusive cumsum over the last axis of positive float32 values as an
+    exact (int32, float32 frac in [0, 1)) pair.
+
+    Integer parts accumulate exactly; fractional parts in two levels of
+    small float32 partial sums (``sub``-element runs inside ``block``-element
+    blocks, floors taken at each level, each float cumsum in XLA's order
+    through :func:`fixed_order_cumsum`), then one sequential carry over the
+    block totals: a loop over blocks, vectorised over the leading axes, in
+    the reference's order of operations.  The frac error stays under ~2e-4
+    whatever the total.  Contract: the int32 part wraps past 2**31 (about
+    2.2 h of 192 kHz output); longer takes belong to the streamed tier."""
+    T = x.shape[-1]
+    lead = x.shape[:-1]
+    S = block // sub
+    xb = F.pad(x, (0, (-T) % block)).reshape(*lead, -1, S, sub)
+    xi = torch.floor(xb)
+    xf = xb - xi
+    # exclusive cumsums inside each sub run (frac magnitude <= sub); the
+    # integer cumsums are exact in any order
+    ci_in = torch.cumsum(xi, dim=-1) - xi
+    cf_in = fixed_order_cumsum(xf) - xf
+    cfi = torch.floor(cf_in)
+    cff = cf_in - cfi
+    # sub-run totals, normalized
+    s_last = cff[..., -1] + xf[..., -1]
+    sti = ci_in[..., -1] + xi[..., -1] + cfi[..., -1] + torch.floor(s_last)
+    stf = s_last - torch.floor(s_last)
+    # exclusive prefix of sub-run totals inside the block (frac mag <= S)
+    bti = torch.cumsum(sti, dim=-1) - sti
+    btf = fixed_order_cumsum(stf) - stf
+    bfi = torch.floor(btf)
+    bff = btf - bfi
+    # per-element in-block combine (block offset still zero)
+    f0 = bff[..., None] + cff
+    w0 = torch.floor(f0)
+    ints0 = bti[..., None] + bfi[..., None] + ci_in + cfi + w0  # exact ints
+    fr0 = f0 - w0
+    s2 = fr0[..., -1, -1] + xf[..., -1, -1]
+    ti = (ints0[..., -1, -1] + xi[..., -1, -1] + torch.floor(s2)).to(torch.int32)
+    tf = s2 - torch.floor(s2)
+    # the sequential carry over block totals, one block a step
+    whole = torch.zeros(lead, dtype=torch.int32, device=x.device)
+    frac = torch.zeros(lead, dtype=torch.float32, device=x.device)
+    off_i, off_f = [], []
+    for b in range(ti.shape[-1]):
+        off_i.append(whole)
+        off_f.append(frac)
+        frac = frac + tf[..., b]
+        w = torch.floor(frac)
+        whole = whole + ti[..., b] + w.to(torch.int32)
+        frac = frac - w
+    if not off_i:
+        return torch.zeros(x.shape, dtype=torch.int32, device=x.device), x.clone()
+    nf = torch.stack(off_f, dim=-1)[..., None, None] + fr0
+    w = torch.floor(nf)
+    ints = (torch.stack(off_i, dim=-1)[..., None, None] + ints0.to(torch.int32)
+            + w.to(torch.int32))
+    fracs = nf - w
+    return ints.reshape(*lead, -1)[..., :T], fracs.reshape(*lead, -1)[..., :T]
+
+
+def _plan_from_speeds(speeds, step: int, max_n: int, drift: int):
+    """Device position plan from (..., F) frame-rate speeds: clip to the
+    drift contract -> dithered counts -> segment advances -> base positions.
+    Returns (clipped speeds, n, base_int, base_frac), the last three
+    (..., F - 1).  The clip bounds round to float32 as JAX rounds
+    weak-typed Python floats."""
+    # |anchor - k| <= drift needs |1/speed - 1| <= (drift-2)/max_n: a take
+    # whose wow exceeds what ``drift`` budgets gets a clipped curve
+    d_bound = min(0.9, max(drift - 2, 1) / max_n)
+    speeds = torch.clamp(speeds, min=_f32(1.0 / (1.0 + d_bound)),
+                         max=_f32(1.0 / (1.0 - d_bound)))
+    s_lo, s_hi = speeds[..., :-1], speeds[..., 1:]
+    n_raw = step * (s_lo + s_hi) / 2.0
+    # dithered output counts n_i = round(cum_i) - round(cum_{i-1}), the
+    # cumsum held as an exact (int, frac) pair
+    ci, cf = _split_cumsum_exclusive(n_raw)
+    whole = torch.floor(cf + n_raw)
+    inc_i = ci + whole.to(torch.int32)
+    inc_f = cf + n_raw - whole
+    rounded = inc_i + (inc_f >= 0.5).to(torch.int32)
+    n = torch.diff(rounded, dim=-1, prepend=torch.zeros_like(rounded[..., :1]))
+    n = torch.clamp(n, 0, max_n)
+    A = segment_advances(s_lo.reshape(-1), s_hi.reshape(-1), n.reshape(-1),
+                         max_n).reshape(n.shape)
+    base_int, base_frac = _split_cumsum_exclusive(A)
+    return speeds, n, base_int, base_frac
+
+
+def _fused_plan(mono, NL, NU, n_fft: int, step: int, zeropad: int, max_n: int,
+                nt: int, drift: int, window_name: str, band, frame_mask=None,
+                inv_limbs=None):
+    """Device position plan of one take: tracking, then
+    :func:`_plan_from_speeds`.  The front half of ``restore_fused_device``
+    and ``restore_fused_takes``.  (JAX pins this subgraph with an
+    ``optimization_barrier``; PyTorch runs op by op and fuses nothing, so
+    the plan is the same whatever consumes it.)"""
+    speeds = track_speed_device(mono, NL, NU, n_fft, step, zeropad, window_name,
+                                band=band, frame_mask=frame_mask,
+                                inv_limbs=inv_limbs)
+    return _plan_from_speeds(speeds, step, max_n, drift)
 
 
 # ------------------------------------------------------------ compaction
@@ -545,6 +759,91 @@ def restore_device(sig, sr: int, f0_hz: float, tolerance_st: float = 1.0,
     x = torch.as_tensor(sig, dtype=torch.float32, device=dev)
     return _restore_padded(x, x, sr, f0_hz, tolerance_st, fft_size,
                            fft_overlap, zeropad, sinc_quality)
+
+
+def restore_fused_device(x, NL, NU, n_fft: int, step: int, zeropad: int,
+                         max_n: int, nt: int = 50, drift: int = 64,
+                         window_name: str = "blackmanharris",
+                         backend: str = "xla", band=None, device="cuda"):
+    """End-to-end restoration with the plan on the device: tracking ->
+    speed curve -> dithered position plan -> banded sinc, with no host
+    round trip in between.
+
+    ``x`` is (n,) mono or (C, n) channels of one take: tracking runs on
+    channel 0 and every channel resamples through its curve (the
+    reference's export contract, resampling.py:211-231).  ``NL``/``NU``:
+    (n // step + 1,) per-frame band limits.  ``backend``: see
+    :func:`_sinc_backend`.  Returns the (T, max_n) padded grid, with a
+    leading channel axis for (C, n) input; entries with k >= n_i are zero."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    NL = torch.as_tensor(NL, dtype=torch.int32, device=dev)
+    NU = torch.as_tensor(NU, dtype=torch.int32, device=dev)
+    mono = x[0] if x.dim() == 2 else x
+    speeds, n, base_int, base_frac = _fused_plan(
+        mono, NL, NU, n_fft, step, zeropad, max_n, nt, drift, window_name, band)
+    return run_banded_sinc(x, speeds, n, base_int, base_frac, max_n, nt, drift,
+                           backend)
+
+
+def _restore_fused_takes(xb, NLb, NUb, n_fft: int, step: int, zeropad: int,
+                         max_n: int, nt: int, drift: int, window_name: str,
+                         backend: str, band, lengths, device):
+    """:func:`restore_fused_takes`, also returning the plan ``(n, base_int,
+    base_frac)``, each (B, T)."""
+    dev = resolve_device(device)
+    xb = torch.as_tensor(xb, dtype=torch.float32, device=dev)
+    NLb = torch.as_tensor(NLb, dtype=torch.int32, device=dev)
+    NUb = torch.as_tensor(NUb, dtype=torch.int32, device=dev)
+    B, N = xb.shape
+    xt = xs = xb
+    fmasks = invs = [None] * B
+    if lengths is not None:
+        # per-take boundary regeneration: tracking frames that cross a take's
+        # end see the solo run's reflect pad, sinc taps past it read zero
+        lengths_h = np.asarray(lengths, np.int64)
+        invs = torch.as_tensor(inv_count_limbs(lengths_h // step + 1), device=dev)
+        L = torch.as_tensor(lengths_h, dtype=torch.int32, device=dev)[:, None]
+        pos = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
+        src = torch.where(pos < L, pos, torch.clamp(2 * (L - 1) - pos, 0, N - 1))
+        xt = torch.gather(xb, 1, src.to(torch.int64))
+        xs = torch.where(pos < L, xb, 0.0)
+        frames = torch.arange(N // step + 1, dtype=torch.int32, device=dev)[None, :]
+        fmasks = (frames <= L // step).to(torch.float32)
+    # one take at a time, so each tracking GEMM keeps the solo run's
+    # (chunk_frames, n_fft) shape and a row is bit-identical to its solo run
+    speeds = torch.stack([
+        track_speed_device(xt[b], NLb[b], NUb[b], n_fft, step, zeropad,
+                           window_name, band=band, frame_mask=fmasks[b],
+                           inv_limbs=invs[b])
+        for b in range(B)])
+    speeds, nn, bi, bf = _plan_from_speeds(speeds, step, max_n, drift)
+    flat = _flatten_takes(xs, speeds, nn, bi, bf, max_n, nt, drift)
+    out = _sinc_segments_backend(flat, max_n, nt, drift, backend)
+    return out.reshape(B, -1, max_n), nn, bi, bf
+
+
+def restore_fused_takes(xb, NLb, NUb, n_fft: int, step: int, zeropad: int,
+                        max_n: int, nt: int = 50, drift: int = 64,
+                        window_name: str = "blackmanharris",
+                        backend: str = "xla", band=None, lengths=None,
+                        device="cuda"):
+    """A batch of INDEPENDENT takes: each row of ``xb`` (B, n) tracks its own
+    speed curve and resamples through it (unlike ``restore_fused_device``'s
+    (C, n), whose rows are channels of one take).  ``NLb``/``NUb``:
+    (B, n // step + 1) per-take band limits.  The takes flatten into one
+    segment axis, with zero guards between them, for one sinc pass.
+    Returns (B, T, max_n) padded grids.
+
+    ``lengths``: optional (B,) real sample counts of a mixed-length batch
+    (rows padded to the common n).  Each take is then restored as its solo
+    ``restore_fused_device`` run would be: tracking sees the take's reflect
+    pad past its end, the centring mean runs over its own frames
+    (markers.py:190-192) and sinc taps past its end read zero; its first
+    ``length // step`` segments are bit-identical to the solo run's."""
+    return _restore_fused_takes(xb, NLb, NUb, n_fft, step, zeropad, max_n, nt,
+                                drift, window_name, backend, band, lengths,
+                                device)[0]
 
 
 def restore_file_fast(audio_path, f0_hz=None, tolerance_st: float = 1.0,

@@ -166,8 +166,8 @@ def test_cuda_device_raises_without_card():
 
 
 def test_port_runs_without_importing_jax(tmp_path):
-    """The port's CLI, pipeline and kernel modules run a whole restore in a
-    fresh interpreter without JAX ever being imported."""
+    """The port's CLI, pipeline, batch and kernel modules run a whole
+    restore in a fresh interpreter without JAX ever being imported."""
     src = tmp_path / "take.wav"
     audio_io.write_wav(src, _stereo_wow(seconds=1.0)[0], 22050)
     code = (
@@ -175,6 +175,7 @@ def test_port_runs_without_importing_jax(tmp_path):
         "from pyaudiorestoration_tpu_torch import cli\n"
         "import pyaudiorestoration_tpu_torch.pipelines.respeeder_device\n"
         "import pyaudiorestoration_tpu_torch.kernels.sinc_banded\n"
+        "import pyaudiorestoration_tpu_torch.parallel.batch\n"
         f"rc = cli.main(['respeed', '--fast', {str(src)!r}, '--device', 'cpu',"
         " '--fft-size', '2048', '--zeropad', '2', '--sinc-quality', '8'])\n"
         "assert rc == 0, rc\n"

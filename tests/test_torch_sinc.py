@@ -42,11 +42,11 @@ def _unaligned_case():
     return sig, np.ones(T + 1, np.float32), plan, 8
 
 
-def _torch_sinc(sig, speeds, plan, nt, drift):
+def _torch_sinc(sig, speeds, plan, nt, drift, backend="auto"):
     p = plan_to_torch(plan, "cpu")
     return rt.run_banded_sinc(torch.from_numpy(sig), torch.from_numpy(speeds),
                               p["n"], p["base_int"], p["base_frac"], p["max_n"],
-                              nt, drift).numpy()
+                              nt, drift, backend).numpy()
 
 
 @pytest.mark.parametrize("case,nt", [("wow", 30), ("unaligned", 8)])
@@ -73,7 +73,7 @@ def test_two_channels_flatten_into_segments():
         jnp.asarray(x), jnp.asarray(speeds), jnp.asarray(plan["n"]),
         jnp.asarray(plan["base_int"]), jnp.asarray(plan["base_frac"]),
         int(plan["max_n"]), 16, drift, backend="xla"))
-    got = _torch_sinc(x, speeds, plan, 16, drift)
+    got = _torch_sinc(x, speeds, plan, 16, drift, backend="pallas")
     assert got.shape == ref.shape == (2, len(plan["n"]), plan["max_n"])
     np.testing.assert_allclose(got, ref, atol=3e-5, rtol=0)
 
@@ -206,3 +206,90 @@ def test_wrapper_uses_plain_version_on_cpu_and_checks_inputs():
         kb.sinc_banded(*args[:4], in_seg.float(), 16, drift)
     with pytest.raises(ValueError):
         kb.sinc_banded(args[0], args[1], bs[:, :-1], *args[3:], 16, drift)
+
+
+# ---------------------------------------------------------------- K2
+
+def _jax_kernel(buf, bs, rel, in_seg, nt, drift, max_n):
+    """JAX's K2 body run through pl.pallas_call in interpret mode
+    (test_pallas_kernels.py:142-148)."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+
+    return np.asarray(pl.pallas_call(
+        functools.partial(sinc_pallas._kernel, nt=nt, drift=drift, max_n=max_n),
+        out_shape=jax.ShapeDtypeStruct(bs.shape, jnp.float32), interpret=True,
+    )(jnp.asarray(buf), jnp.asarray(bs), jnp.asarray(rel),
+      jnp.asarray(in_seg.astype(np.float32))))
+
+
+@pytest.mark.parametrize("case", ["wow", "unaligned", "stereo"])
+def test_sinc_banded_device_matches_jax_pallas_and_xla(case):
+    """The gathered tier (K2's plain version on the CPU) against JAX's K2,
+    sinc_banded_pallas in interpret mode, and JAX's XLA tier
+    (test_pallas_kernels.py:10-57, plus two channels)."""
+    if case == "unaligned":
+        sig, speeds, plan, drift = _unaligned_case()
+        nt = 8
+    else:
+        sig, speeds, plan, drift = _wow_case(seconds=2 if case == "wow" else 1)
+        nt = 30
+    chans = [sig] if case != "stereo" else [sig, -0.5 * sig[::-1]]
+    x = np.stack(chans).astype(np.float32)
+    max_n = int(plan["max_n"])
+    p = plan_to_torch(plan, "cpu")
+    got = rt.sinc_banded_device(torch.from_numpy(x if case == "stereo" else x[0]),
+                                torch.from_numpy(speeds), p["n"], p["base_int"],
+                                p["base_frac"], max_n, nt, drift).numpy()
+    got = got if case == "stereo" else got[None]
+    assert got.shape == (len(chans), len(plan["n"]), max_n)
+    for c, ch in enumerate(chans):
+        args = (jnp.asarray(ch), jnp.asarray(speeds), jnp.asarray(plan["n"]),
+                jnp.asarray(plan["base_int"]), jnp.asarray(plan["base_frac"]))
+        pallas = np.asarray(sinc_pallas.sinc_banded_pallas(
+            *args, max_n, nt, drift, tile=8, interpret=True))
+        np.testing.assert_allclose(got[c], pallas, atol=3e-5, rtol=0)
+        xla = np.asarray(rj.sinc_banded_device(*args, max_n, nt, drift))
+        np.testing.assert_allclose(got[c], xla, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fc_case", ["one", "floor", "mixed"])
+def test_gathered_matches_jax_kernel_body(fc_case):
+    buf, bs, rel, nt, drift, max_n = _weight_inputs(fc_case)
+    in_seg = np.ones(bs.shape, bool)
+    in_seg[3, 100:] = False  # a short segment
+    got = kb.sinc_banded_gathered(torch.from_numpy(buf), torch.from_numpy(bs),
+                                  torch.from_numpy(rel), torch.from_numpy(in_seg),
+                                  nt, drift).numpy()
+    ref = _jax_kernel(buf, bs, rel, in_seg, nt, drift, max_n)
+    np.testing.assert_allclose(got, ref, atol=3e-5, rtol=0)
+    assert np.all(got[~in_seg] == 0)
+
+
+def test_gathered_wrapper_uses_plain_version_on_cpu_and_checks_inputs():
+    buf, bs, rel, nt, drift, max_n = _weight_inputs("mixed")
+    args = [torch.from_numpy(buf), torch.from_numpy(bs), torch.from_numpy(rel),
+            torch.ones(bs.shape, dtype=torch.bool)]
+    before = kb.sinc_banded_gathered.launches
+    out = kb.sinc_banded_gathered(*args, nt, drift)
+    assert kb.sinc_banded_gathered.launches == before  # no kernel launch on the CPU
+    assert torch.equal(out, kb.sinc_shift_mac(*args, max_n, nt, drift))
+    bad = {0: args[0][:, :-1], 1: args[1].double(), 2: args[2][:-1],
+           3: args[3].float()}
+    for i, t in bad.items():
+        with pytest.raises(ValueError):
+            kb.sinc_banded_gathered(*args[:i], t, *args[i + 1:], nt, drift)
+    with pytest.raises(ValueError):  # the buffer's width follows nt + drift
+        kb.sinc_banded_gathered(*args, nt, drift + 1)
+    with pytest.raises(ValueError):
+        kb.sinc_banded_gathered(*args, 0, drift)
+    with pytest.raises(ValueError):
+        kb.sinc_banded_gathered(args[0].to("meta"), *args[1:], nt, drift)
+
+
+def test_gather_windows_zero_outside_signal():
+    sig = torch.arange(1, 11, dtype=torch.float32)
+    buf = kb.gather_windows(sig, torch.tensor([0, 8], dtype=torch.int32), 6, 2)
+    assert buf.tolist() == [[0, 0, 1, 2, 3, 4], [7, 8, 9, 10, 0, 0]]
