@@ -17,6 +17,16 @@ zeropad 2, sinc quality 50):
        batch, each row bit-equal to its solo run
   9    the ``respeed-batch`` CLI on three 10 s takes; the card against the
        CPU path on a small batch
+  10   the streamed tier through the auto route: a 12-minute 192 kHz stereo
+       take (1.1 GB decoded, over the 1 GiB threshold) through
+       ``respeed --fast`` with no ``--stream``; then the streamed tier
+       against the in-memory path on the 30 s take
+  11   the portable path at the CLI defaults (Peak, fft 1024/8/4, sinc 50):
+       ``respeed --save-project`` on the 30 s take, then the saved ``.spd``;
+       K1 against its plain version at ``sinc_resample``'s shape; the card
+       against the CPU path on a small take
+  12   the other trackers through the CLI on a 10 s 44.1 kHz take, and the
+       float64 device ``sosfiltfilt`` against scipy
 
 Phases print on their own lines; the line before the last is a JSON object
 with each kernel's launches on the main paths, its error against the plain
@@ -26,8 +36,10 @@ Any failure raises and exits non-zero with no result line.  Imports no JAX.
 """
 
 import json
+import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -294,6 +306,239 @@ def cli_batch():
     return launches
 
 
+LONG_MINUTES = 12  # 1.106 GB decoded at 192 kHz stereo float32: over 1 GiB
+
+
+def long_wow_chunks(sr, n, dev, chunk=1 << 24, seed=0):
+    """wow_take's tone (0.8 % wow at 0.55 Hz, 0.15 % flutter at 6.3 Hz),
+    synthesized on the card in ``chunk``-sample (chunk, 2) float32 pieces
+    from the closed-form phase, so no piece depends on the one before."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w1, w2 = 2 * math.pi * 0.55, 2 * math.pi * 6.3
+    for a in range(0, n, chunk):
+        t = torch.arange(a, min(n, a + chunk), dtype=torch.float64, device=dev) / sr
+        phase = 2 * math.pi * F0 * (t + 0.008 / w1 * (1 - torch.cos(w1 * t))
+                                    + 0.0015 / w2 * (math.cos(1.0) - torch.cos(w2 * t + 1.0)))
+        noise = torch.randn(t.shape, generator=gen, dtype=torch.float64, device=dev)
+        mono = (0.5 * torch.sin(phase) + 1e-3 * noise).to(torch.float32)
+        yield torch.stack([mono, 0.8 * mono], -1).cpu().numpy()
+
+
+def write_float_wav(path, sr, channels, n, chunks):
+    """A float32 WAV (format 3) header, then ``chunks`` written in turn."""
+    data = n * channels * 4
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + data) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 3, channels, sr, sr * channels * 4,
+                                      channels * 4, 32))
+        f.write(b"data" + struct.pack("<I", data))
+        for block in chunks:
+            f.write(np.ascontiguousarray(block, dtype="<f4").tobytes())
+
+
+def head(path, seconds):
+    """The first ``seconds`` of a WAV, channel 0, as float64."""
+    sr, data = wavfile.read(path, mmap=True)
+    return np.array(data[:int(seconds * sr), 0], dtype=np.float64)
+
+
+def streamed_phase(take, dev):
+    """Phase 10: the 12-minute take through ``respeed --fast`` (auto route to
+    the streamed tier), then the streamed tier against the in-memory path on
+    the 30 s take.  Returns K1's launches in the 12-minute run."""
+    from pyaudiorestoration_tpu_torch import cli
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+
+    n = int(LONG_MINUTES * 60 * SR)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "long.wav")
+        t0 = time.perf_counter()
+        write_float_wav(src, SR, 2, n, long_wow_chunks(SR, n, dev))
+        synth_s = time.perf_counter() - t0
+        size = os.path.getsize(src)
+        timings, real = {}, rt.restore_file_streamed
+
+        def spy(*a, **k):
+            return real(*a, timings=timings, **k)
+
+        rt.restore_file_streamed = spy
+        try:
+            reset_launches(kb)
+            t0 = time.perf_counter()
+            rc = cli.main(["respeed", src, "--fast", "--device", "cuda", "--fft-size",
+                           str(FFT), "--fft-overlap", str(OVERLAP), "--zeropad",
+                           str(ZEROPAD), "--sinc-quality", str(QUALITY)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            rt.restore_file_streamed = real
+        launches = kb.sinc_banded.launches
+        out = os.path.join(tmp, "long_res.wav")
+        n_out = len(wavfile.read(out, mmap=True)[1])
+        before, after = (tone_stability(head(p, 30.0), SR) for p in (src, out))
+    print(f"streamed tier, auto route: {LONG_MINUTES} min 192 kHz stereo, "
+          f"{size / 1e9:.3f} GB on disk (synthesized and written in {synth_s:.1f} s); "
+          f"rc {rc}, K1 launches {launches}, pass 1 {timings.get('pass1_s', 0):.3f} s "
+          f"(read {timings.get('pass1_read_s', 0):.3f}, device "
+          f"{timings.get('pass1_device_s', 0):.3f}), plan {timings.get('plan_s', 0):.3f} s, "
+          f"pass 2 {timings.get('pass2_s', 0):.3f} s (read "
+          f"{timings.get('pass2_read_s', 0):.3f}, device "
+          f"{timings.get('pass2_device_dl_s', 0):.3f}, write "
+          f"{timings.get('pass2_write_s', 0):.3f}), wall {wall:.3f} s, "
+          f"{n / SR / wall:.1f}x realtime; output {n_out} frames of {n}; "
+          f"flutter (first 30 s) {before:.2e} -> {after:.2e}")
+    if rc != 0 or launches < 1 or "pass2_s" not in timings:
+        raise RuntimeError(f"streamed restore: rc {rc}, K1 launches {launches}, "
+                           f"timings {sorted(timings)}")
+    if abs(n_out - n) > 0.01 * n or not after < 0.2 * before:
+        raise RuntimeError("streamed restore: bad length or flutter")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "take.wav")
+        wavfile.write(src, SR, take)
+        kw = dict(fft_size=FFT, fft_overlap=OVERLAP, zeropad=ZEROPAD,
+                  sinc_quality=QUALITY, device=dev)
+        a = wavfile.read(rt.restore_file_fast(src, suffix="_mem", stream=False, **kw))[1]
+        b = wavfile.read(rt.restore_file_streamed(src, suffix="_str", **kw))[1]
+    err = float(np.abs(a - b).max()) if a.shape == b.shape else math.inf
+    print(f"streamed vs in-memory ({SECONDS:.0f} s take): shapes {a.shape} / {b.shape}, "
+          f"max|d| {err:.3e} (tol 1e-5)")
+    if not err <= 1e-5:
+        raise RuntimeError("the streamed tier disagrees with the in-memory path")
+    return launches
+
+
+def timed_cli(argv, reps):
+    """``cli.main(argv)`` once cold and ``reps`` times warm; returns (K1
+    launches of the cold run, cold s, median warm s, warm runs)."""
+    from pyaudiorestoration_tpu_torch import cli
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+
+    reset_launches(kb)
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = kb.sinc_banded.launches
+    if rc != 0:
+        raise RuntimeError(f"{argv}: rc {rc}")
+    warm, runs = wall_s(lambda: cli.main(argv), reps)
+    return launches, cold, warm, runs
+
+
+def portable_phase(take, sig, dev):
+    """Phase 11: ``respeed --save-project`` and the ``.spd`` replay at the CLI
+    defaults on the 30 s take; K1 at ``sinc_resample``'s shape; the card
+    against the CPU path.  Returns (K1 launches of the two runs, K1 check)."""
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.ops import resampling as rs
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder as rp
+    from pyaudiorestoration_tpu_torch.utils import project
+
+    n = take.shape[0]
+    before = tone_stability(take[:, 0].astype(np.float64), SR)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "take.wav")
+        wavfile.write(src, SR, take)
+        spd = src[:-4] + ".spd"
+        for name, argv in (("respeed (Peak)", ["respeed", src, "--device", "cuda",
+                                               "--save-project"]),
+                           ("respeed .spd", ["respeed", spd, "--device", "cuda"])):
+            k1, cold, warm, runs = timed_cli(argv, 3)
+            out = wavfile.read(os.path.join(tmp, "take_res.wav"))[1]
+            after = tone_stability(out[:, 0].astype(np.float64), SR)
+            launches[name] = k1
+            print(f"{name}: {SECONDS:.0f} s take at the CLI defaults, K1 launches {k1}, "
+                  f"cold {cold:.3f} s, warm {warm:.3f} s "
+                  f"(runs {', '.join(f'{r:.3f}' for r in runs)}), "
+                  f"{SECONDS / warm:.1f}x realtime; output {out.shape}; "
+                  f"flutter {before:.2e} -> {after:.2e}")
+            if k1 < 1 or not np.all(np.isfinite(out)) or abs(len(out) - n) > 0.01 * n:
+                raise RuntimeError(f"{name}: K1 launches {k1}, output {out.shape}")
+            if not after < 0.2 * before:
+                raise RuntimeError(f"{name}: flutter did not drop below 0.2x the input's")
+        proj = project.Project.load(spd)
+        curve = rp.get_speed_curve(proj.marker_list("lines"), [], SR, proj.hop, n / SR)
+
+    # K1 on the banded branch's own inputs, one launch per channel
+    pos = rs.speed_to_pos(curve[:, 0] * SR, curve[:, 1], n)
+    anchors, rel, fc, drift = rs.banded_layout(pos, rs._positions_to_device_args(pos)[2])
+    anchors, rel, fc = (torch.as_tensor(v, device=dev) for v in (anchors, rel, fc))
+    lanes = torch.ones(rel.shape, dtype=torch.bool, device=dev)
+
+    def run(fn):
+        return [fn(ch, anchors, fc, rel, lanes, QUALITY, drift) for ch in sig]
+
+    err = max(float((g - r).abs().max())
+              for g, r in zip(run(kb.sinc_banded), run(kb.sinc_banded_plain)))
+    kernel_ms = cuda_ms(lambda: run(kb.sinc_banded), 20)
+    plain_ms = cuda_ms(lambda: run(kb.sinc_banded_plain), 5)
+    print(f"K1 vs plain at sinc_resample's shape: {len(sig)} x {tuple(rel.shape)}, "
+          f"nt {QUALITY}, drift {drift}, max|d| {err:.3e} (tol {TOL}); kernel "
+          f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms ({plain_ms / kernel_ms:.1f}x)")
+    if not err <= TOL:
+        raise RuntimeError(f"K1 disagrees with its plain version at sinc_resample: {err}")
+
+    small = wow_take(22050, 2.5, seed=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = []
+        for d in ("cuda", "cpu"):
+            src = os.path.join(tmp, f"{d}.wav")
+            wavfile.write(src, 22050, small)
+            outs.append(wavfile.read(rp.restore_file(
+                src, fft_size=2048, fft_overlap=8, zeropad=2, sinc_quality=30,
+                device=d)[0])[1][:, 0])
+    compare_compacted(*outs, "portable respeed cuda vs cpu (2.5 s, 22.05 kHz)")
+    return launches, {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                      "rows": int(rel.shape[0]), "drift": drift}
+
+
+def modes_phase(dev):
+    """Phase 12: the other trackers through the CLI on a 10 s 44.1 kHz
+    take, then the float64 device sosfiltfilt against scipy."""
+    from scipy import signal as dsp
+
+    from pyaudiorestoration_tpu_torch import cli
+    from pyaudiorestoration_tpu_torch.ops import filters
+
+    sr = 44100
+    take = wow_take(sr, 10.0, seed=5)
+    n = take.shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "short.wav")
+        wavfile.write(src, sr, take)
+        for i, (mode, extra) in enumerate([
+                ("Peak Track", []), ("Center of Gravity", []), ("Zero-Crossing", []),
+                ("Correlation", []), ("Freehand Draw", []),
+                ("Peak", ["--adaptation", "Linear"])]):
+            t0 = time.perf_counter()
+            rc = cli.main(["respeed", src, "--device", "cuda", "--mode", mode, *extra,
+                           "--suffix", f"_{i}"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out = wavfile.read(os.path.join(tmp, f"short_res_{i}.wav"))[1]
+            print(f"respeed --mode {mode!r} {' '.join(extra)}: rc {rc}, wall {wall:.3f} s, "
+                  f"output {out.shape}")
+            if rc != 0 or not np.all(np.isfinite(out)) or abs(len(out) - n) > 0.02 * n:
+                raise RuntimeError(f"respeed --mode {mode}: rc {rc}, output {out.shape}")
+
+    x = (0.3 * np.random.default_rng(1234).standard_normal(1 << 16)).astype(np.float32)
+    worst = math.inf
+    for lo, hi in [(100, 147), (681, 1000), (40, 80)]:
+        sos = dsp.butter(3, [lo / (sr / 2), hi / (sr / 2)], btype="band", output="sos")
+        ref = dsp.sosfiltfilt(sos, x.astype(np.float64))
+        got = filters.sosfiltfilt(sos, x, device=dev).cpu().numpy().astype(np.float64)
+        worst = min(worst, 10 * math.log10(np.sum(ref ** 2)
+                                           / max(np.sum((got - ref) ** 2), 1e-300)))
+    ms = cuda_ms(lambda: filters.sosfiltfilt(sos, torch.as_tensor(x, device=dev)), 5)
+    print(f"sosfiltfilt float64 scan on the card: worst of 3 cascades {worst:.1f} dB "
+          f"against scipy (gate 100 dB); {len(x)} samples {ms:.3f} ms")
+    if not worst > 100.0:
+        raise RuntimeError(f"device sosfiltfilt at {worst:.1f} dB against scipy")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -420,6 +665,11 @@ def main():
     k1_batch = fused_batch(sig[0], NLs, NUs, band, dev)
     k1_cli = cli_batch()
 
+    # 10-12. the streamed tier, the portable path, the other trackers
+    k1_stream = streamed_phase(take, dev)
+    k1_portable, k1_resample = portable_phase(take, sig, dev)
+    modes_phase(dev)
+
     common = {"route": "cuda", "source": "pyaudiorestoration_tpu_torch/csrc/sinc_banded.cu"}
     print(json.dumps({"kernels": [
         {"name": "sinc_banded", **common,
@@ -428,8 +678,11 @@ def main():
          "launches_by_path": {"restore_fused_device pallas": k1_fused,
                               "respeed --fast": launches,
                               "restore_fused_takes x8": k1_batch,
-                              "respeed-batch": k1_cli},
-         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms},
+                              "respeed-batch": k1_cli,
+                              "respeed (streamed, auto route)": k1_stream,
+                              **k1_portable},
+         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+         "sinc_resample_shape": k1_resample},
         {"name": "sinc_banded_gathered", **common,
          "replaces": "pyaudiorestoration_tpu/kernels/sinc_pallas.py:350",
          "launches": k2_fused,

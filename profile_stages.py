@@ -1,12 +1,17 @@
 """Stage breakdown and device profile of the port's wow/flutter paths on one
 CUDA card, on chip_smoke's 30 s, 192 kHz stereo take.
 
-    python3 profile_stages.py [--path fast|fused|batch] [--runs 5]
+    python3 profile_stages.py [--path fast|fused|batch|stream|portable] [--runs 5]
 
 ``fast``: ``restore_file_fast`` (``respeed --fast``), file to file.
 ``fused``: ``restore_fused_device`` on the stereo take (bench.py:130-133).
 ``batch``: ``restore_fused_takes`` on 8 takes of it (bench.py:143-155).
-The fused paths run K1 (backend "pallas"), as the card's "auto" does.
+``stream``: ``restore_file_streamed`` (the streamed tier) on chip_smoke's
+12-minute take (1.1 GB decoded), file to file, split into its passes.
+``portable``: ``respeeder.restore_file`` (``respeed`` at the CLI defaults:
+Peak, fft 1024/8/4, sinc 50), file to file.
+The fused paths run K1 (backend "pallas"), as the card's "auto" does; the
+streamed and portable paths run K1 through their own resamplers.
 
 Prints the card's name and power limit, then the median wall milliseconds of
 each stage (a synchronize after each), then one ``torch.profiler`` run of
@@ -26,8 +31,8 @@ import torch
 from scipy.io import wavfile
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (DRIFT, FFT, MAX_N, OVERLAP, QUALITY, SECONDS, SR, ZEROPAD,
-                        wow_take)
+from chip_smoke import (DRIFT, FFT, LONG_MINUTES, MAX_N, OVERLAP, QUALITY, SECONDS,
+                        SR, ZEROPAD, long_wow_chunks, wow_take, write_float_wav)
 
 HOP = FFT // OVERLAP
 
@@ -107,6 +112,56 @@ def fused_stages(x_host, shared_curve, NLs, NUs, band, rt, kb, dev):
     return s.done()
 
 
+STREAM_STAGES = ("pass1_read_s", "pass1_device_s", "pass1_s", "plan_s", "pass2_read_s",
+                 "pass2_device_dl_s", "pass2_write_s", "pass2_s")
+
+
+def stream_stages(src, rt, dev):
+    """One run of the streamed tier; its own per-pass timings, in ms."""
+    timings = {}
+    t0 = time.perf_counter()
+    rt.restore_file_streamed(src, fft_size=FFT, fft_overlap=OVERLAP, zeropad=ZEROPAD,
+                             sinc_quality=QUALITY, resume=False, timings=timings,
+                             device=dev)
+    torch.cuda.synchronize()
+    out = {k[:-2]: timings[k] * 1e3 for k in STREAM_STAGES}
+    out["total"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def portable_stages(src, rp, rs, audio_io, dev):
+    """One run of ``respeeder.restore_file`` at the CLI defaults, split into
+    stages (K1 once per channel, as ``sinc_resample``'s banded branch)."""
+    fft, overlap, zeropad, quality = 1024, 8, 4, 50
+    s = Stages()
+    signal, sr, nch = audio_io.read_file(src)
+    n = len(signal)
+    s.mark("read")
+    spectrum, hop = rp.compute_spectrum(signal, sr, fft, overlap, zeropad, device=dev)
+    s.mark("spectrum")
+    f0 = (int(np.argmax(spectrum.mean(axis=1)[1:])) + 1) / (fft * zeropad) * sr
+    line = rp.trace_trail(signal, sr, [(0.0, f0), (n / sr, f0)], "Peak", fft, overlap,
+                          zeropad, spectrum=spectrum, device=dev)
+    s.mark("trace")
+    curve = rp.get_speed_curve([line], [], sr, hop, n / sr)
+    s.mark("curve")
+    pos = rs.speed_to_pos(curve[:, 0] * sr, curve[:, 1], n)
+    anchors, rel, fc, drift = rs.banded_layout(pos, rs._positions_to_device_args(pos)[2])
+    anchors, rel, fc = (torch.as_tensor(v, device=dev) for v in (anchors, rel, fc))
+    s.mark("positions")
+    sig = torch.as_tensor(signal, device=dev)
+    s.mark("upload")
+    out = torch.stack([rs._sinc_banded_blocks(sig[:, c].contiguous(), anchors, rel, fc,
+                                              quality, drift).reshape(-1)
+                       for c in range(nch)], -1)[:len(pos)]
+    s.mark("K1")
+    host = out.cpu().numpy()
+    s.mark("download")
+    audio_io.write_file(src, host, sr, suffix="_res")
+    s.mark("write")
+    return s.done()
+
+
 def device_profile(fn):
     """One profiled run of ``fn``: wall, device busy time and idle share, and
     the device time by kernel."""
@@ -137,13 +192,16 @@ def device_profile(fn):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=["fast", "fused", "batch"], default="fast")
+    ap.add_argument("--path", choices=["fast", "fused", "batch", "stream", "portable"],
+                    default="fast")
     ap.add_argument("--runs", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_stages: torch sees no CUDA card")
     from pyaudiorestoration_tpu.utils import audio_io  # the path's own codec
     from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.ops import resampling as rs
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder as rp
     from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
     from pyaudiorestoration_tpu_torch.utils.convert import plan_to_torch
     from pyaudiorestoration_tpu_torch.utils.device import resolve_device
@@ -164,6 +222,29 @@ def main():
             def entry():
                 rt.restore_file_fast(src, fft_size=FFT, fft_overlap=OVERLAP,
                                      zeropad=ZEROPAD, sinc_quality=QUALITY, device=dev)
+        elif args.path == "stream":
+            src = os.path.join(tmp, "long.wav")
+            n = LONG_MINUTES * 60 * SR
+            write_float_wav(src, SR, 2, n, long_wow_chunks(SR, n, dev))
+            print(f"stream: {LONG_MINUTES} min, {os.path.getsize(src) / 1e9:.3f} GB")
+
+            def stages():
+                return stream_stages(src, rt, dev)
+
+            def entry():
+                rt.restore_file_streamed(src, fft_size=FFT, fft_overlap=OVERLAP,
+                                         zeropad=ZEROPAD, sinc_quality=QUALITY,
+                                         resume=False, device=dev)
+        elif args.path == "portable":
+            src = os.path.join(tmp, "take.wav")
+            wavfile.write(src, SR, take)
+
+            def stages():
+                return portable_stages(src, rp, rs, audio_io, dev)
+
+            def entry():
+                rp.restore_file(src, fft_size=1024, fft_overlap=8, zeropad=4,
+                                sinc_quality=50, device=dev)
         else:
             NL, NU = rt._band_limits(rt._probe_f0(take[:, 0], SR), 1.0, FFT, ZEROPAD, SR)
             frames = take.shape[0] // HOP + 1

@@ -1,14 +1,31 @@
-"""Sub-sample peak refinement (counterpart of pyaudiorestoration_tpu/ops/correlation.py).
+"""FFT cross-correlation and sub-sample parabolic refinement (counterpart of
+pyaudiorestoration_tpu/ops/correlation.py:21-88).
 
-Only ``parabolic_batch`` is on the wow/flutter slice; the correlation
-estimators are still to be ported.
+Normalised correlation of unit-energy inputs, scipy's 'full' / 'same' /
+'valid' layouts, and the quadratic peak interpolation.  ``find_delay`` and
+``find_delay_batch`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["parabolic_batch"]
+__all__ = ["xcorr", "parabolic", "parabolic_batch"]
+
+
+def _next_fast_len(n: int) -> int:
+    return 1 << (int(n) - 1).bit_length()
+
+
+def parabolic(f, x):
+    """Quadratic-interpolate the peak at integer index ``x`` of the 1-D
+    tensor ``f``.  Returns (refined_index, refined_value) (correlation.py:42-46)."""
+    fm1, f0, fp1 = f[x - 1], f[x], f[x + 1]
+    denom = fm1 - 2 * f0 + fp1
+    denom = torch.where(denom == 0, torch.full_like(denom, 1e-12), denom)
+    xv = 0.5 * (fm1 - fp1) / denom + x
+    yv = f0 - 0.25 * (fm1 - fp1) * (xv - x)
+    return xv, yv
 
 
 def parabolic_batch(f: torch.Tensor, x: torch.Tensor):
@@ -22,3 +39,37 @@ def parabolic_batch(f: torch.Tensor, x: torch.Tensor):
     xv = 0.5 * (fm1 - fp1) / denom + x
     yv = f0 - 0.25 * (fm1 - fp1) * (xv - x)
     return xv, yv
+
+
+def _correlate_full(a, b):
+    """FFT correlation over the last axis, 'full' layout: lags
+    -(len(b)-1) .. len(a)-1, the FFT length padded to a power of two."""
+    la, lb = a.shape[-1], b.shape[-1]
+    n = _next_fast_len(la + lb - 1)
+    fa = torch.fft.rfft(a, n=n)
+    fb = torch.fft.rfft(b, n=n)
+    cc = torch.fft.irfft(fa * torch.conj(fb), n=n)
+    # circular lags: index k holds lag k for k < la, lag k-n for k >= n-lb+1
+    neg = cc[..., n - (lb - 1):] if lb > 1 else cc[..., :0]
+    return torch.cat([neg, cc[..., :la]], dim=-1)
+
+
+def xcorr(a, b, mode: str = "full"):
+    """Normalised cross correlation in [-1, 1] over the last axis of two
+    tensors (correlation.py:6-13)."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    a = a / torch.linalg.norm(a, dim=-1, keepdim=True)
+    b = b / torch.linalg.norm(b, dim=-1, keepdim=True)
+    full = _correlate_full(a, b)
+    la, lb = a.shape[-1], b.shape[-1]
+    if mode == "full":
+        return full
+    if mode == "same":
+        # scipy: same size as a, centred with respect to 'full'
+        start = (full.shape[-1] - la) // 2
+        return full[..., start:start + la]
+    if mode == "valid":
+        start = min(la, lb) - 1
+        return full[..., start:start + max(la, lb) - min(la, lb) + 1]
+    raise ValueError(mode)

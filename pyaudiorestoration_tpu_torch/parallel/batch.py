@@ -92,8 +92,10 @@ def _groups(row_bounds, per_group: int):
     for i, r in enumerate(row_bounds):
         if r >= _INT32_CAP:
             raise NotImplementedError(
-                "this take needs the streamed tier (restore_file_streamed), "
-                "which the PyTorch port does not have yet")
+                "a take of 2**31 samples or more: the JAX package wraps its "
+                "sharded plan's int32 anchors and unwraps them on the host "
+                "(restore_fused_sharded), which the PyTorch port does not "
+                "have yet; restore such a take alone with respeed --stream")
         if cur and (len(cur) == per_group
                     or (len(cur) + 1) * max(r, *(row_bounds[j] for j in cur))
                     >= _INT32_CAP):
@@ -120,8 +122,10 @@ def restore_batch_files_fused(paths, f0_hz=None, tolerance_st: float = 1.0,
     its solo restore whatever the grouping.  ``n_files_axis`` (files per
     dispatch) defaults to ``min(len(paths), 8)``; a group whose flattened
     signal would reach 2**31 samples is split, and a take that alone would
-    reach it raises ``NotImplementedError`` (the streamed tier is not ported
-    yet).  ``f0_hz=None`` probes the pilot tone from the first file."""
+    reach it raises ``NotImplementedError``: the JAX package never streams a
+    batch, it wraps the sharded plan's anchors past 2**31 and unwraps them on
+    the host, and that mesh tier is not ported yet.  ``f0_hz=None`` probes
+    the pilot tone from the first file."""
     from pyaudiorestoration_tpu.utils import streaming
 
     from ..pipelines.respeeder_device import (_band_limits, _probe_f0,

@@ -18,16 +18,23 @@ cumsums and fixed-order tree sums (``_plan_from_speeds``), and the sinc runs
 as K1 (backend ``"pallas"``) or as the gathered-window tier with K2
 (``"xla"``).
 
+Takes over 1 GiB decoded, or past the int32 sample cap, go to the streamed
+tier (``restore_file_streamed``): pass 1 tracks block by block, the plan is
+made on the host, pass 2 resamples tile by tile with K1 and appends to the
+output file.
+
 Every stage has the JAX function's name, arguments and conventions, so the
 parity tests feed both the same inputs.  Public entries take ``device``
-("cuda" by default; "cpu" runs the kernels' plain PyTorch versions).  The
-streamed tier is not ported yet.
+("cuda" by default; "cpu" runs the kernels' plain PyTorch versions).
 """
 
 from __future__ import annotations
 
 import functools
+import logging
 import math
+import os
+import time
 
 import numpy as np
 import torch
@@ -36,6 +43,7 @@ import torch.nn.functional as F
 from ..kernels.sinc_banded import gather_windows, sinc_banded, sinc_banded_gathered
 from ..models.trackers import masked_peak_refine
 from ..ops.fourier import get_window
+from ..ops.fourier import reflect_pad as _reflect_pad
 from ..utils.convert import plan_to_torch
 from ..utils.device import resolve_device
 
@@ -46,7 +54,7 @@ __all__ = ["track_speed_device", "track_peaks_span", "banded_refined_chunk",
            "segment_advances", "sinc_banded_segments", "sinc_banded_device",
            "run_banded_sinc", "compact_output", "compact_padded_device",
            "restore_device", "restore_fused_device", "restore_fused_takes",
-           "restore_file_fast"]
+           "restore_file_streamed", "restore_file_fast"]
 
 
 # ---------------------------------------------------------------- tracking
@@ -126,19 +134,6 @@ def track_peaks_span(xp, NL, NU, n_frames: int, n_fft: int, step: int,
         mag = torch.abs(spec) + 1e-7
         refined.append(masked_peak_refine(mag, nl - lo, nu - lo, bin_offset=float(lo)))
     return torch.cat(refined)[:n_frames]
-
-
-def _reflect_pad(x, pad: int):
-    """``jnp.pad(x, pad, mode="reflect")`` for a 1-D tensor: the edge sample
-    is not repeated, and pads longer than the signal reflect again (period
-    2(n-1)), where ``F.pad(mode="reflect")`` refuses."""
-    n = x.shape[0]
-    i = torch.arange(-pad, n + pad, device=x.device)
-    if n == 1:
-        return x[torch.zeros_like(i)]
-    period = 2 * (n - 1)
-    i = torch.remainder(i, period)
-    return x[torch.where(i >= n, period - i, i)]
 
 
 def track_speed_device(x, NL, NU, n_fft: int, step: int, zeropad: int = 1,
@@ -846,6 +841,186 @@ def restore_fused_takes(xb, NLb, NUb, n_fft: int, step: int, zeropad: int,
                                 device)[0]
 
 
+def restore_file_streamed(audio_path, f0_hz=None, tolerance_st: float = 1.0,
+                          fft_size: int = 4096, fft_overlap: int = 8,
+                          zeropad: int = 2, sinc_quality: int = 50,
+                          suffix: str = "", channel: int = 0, use_channels=None,
+                          frames_per_block: int = 65536, seg_tile: int = 16384,
+                          resume: bool = True, speed_curve=None, timings=None,
+                          device="cuda"):
+    """Larger-than-memory wow/flutter fix: two streamed passes over the file.
+
+    Pass 1 reads ``frames_per_block``-frame spans through the native
+    ``StreamReader``, reflects only at the true file edges, zero-pads each
+    span to a fixed length and tracks its peaks on the device
+    (``track_peaks_span``): the masked-peak tracker is frame-local, so the
+    frames are those of the in-memory path.  The frame-rate speed curve and
+    the position plan are the only whole-take state held (~16 bytes a
+    frame).  Pass 2 resamples ``seg_tile`` segments at a time from a
+    re-read input window, each tile through ``run_banded_sinc`` (K1 on the
+    card) with tile-relative anchors, compacts it on the device and appends
+    it through ``open_writer`` (so ``--flac-out`` applies).  Host memory
+    peaks at one block whatever the take's length.
+
+    Checkpoint/resume (``resume=True``): the pass-1 speed curve persists to
+    ``<out>.speeds.npz``, keyed by the input's identity and the tracking
+    config, with the JAX package's key and array names: a sidecar written by
+    either package resumes in the other, and pass 2 restarts without
+    re-tracking.  The sidecar is removed after a successful write.
+
+    ``speed_curve``: frame-rate speeds (``n//hop + 1`` values) that skip
+    tracking (streamed project replay, constant-ratio resampling).
+    ``timings``: an optional dict the call fills with per-pass wall seconds
+    under the JAX package's keys (``pass1_s``, ``plan_s``, ``pass2_s`` and
+    their read / device / write parts) plus ``n``/``sr``/``n_out``.
+    Returns the output path.
+    """
+    from pyaudiorestoration_tpu.utils import audio_io
+
+    if timings is None:
+        timings = {}
+    dev = resolve_device(device)
+    hop = fft_size // fft_overlap
+    nt = int(sinc_quality)
+    with audio_io.StreamReader(audio_path) as reader:
+        sr, num_channels = reader.sample_rate, reader.channels
+        n = int(reader.frames)
+        channels = list(use_channels) if use_channels else list(range(num_channels))
+        if f0_hz is None:
+            f0_hz = _probe_f0(reader.read(0, min(n, 1 << 18))[:, channel], sr)
+        NL, NU = _band_limits(f0_hz, tolerance_st, fft_size, zeropad, sr)
+        pad = fft_size // 2
+        n_frames = (n + 2 * pad - fft_size) // hop + 1
+        frames_per_block = min(frames_per_block, n_frames)
+        out_base = f"{os.path.splitext(audio_path)[0]}_res{suffix}"
+        ckpt_path = f"{out_base}.speeds.npz"
+        # the key holds the input's identity (size + mtime_ns), not only its
+        # geometry: a replaced file with the same frame count must not
+        # resume from the previous file's speed curve
+        st = os.stat(audio_path)
+        ckpt_key = np.asarray([n, num_channels, sr, fft_size, hop, zeropad,
+                               NL, NU, channel, st.st_size, st.st_mtime_ns],
+                              np.int64)
+
+        speeds = None
+        if speed_curve is not None:
+            speeds = np.asarray(speed_curve, np.float64)
+            if len(speeds) != n_frames:
+                raise ValueError(f"speed_curve has {len(speeds)} values, "
+                                 f"the take {n_frames} frames")
+            resume = False  # nothing expensive to checkpoint
+        if resume and os.path.exists(ckpt_path):
+            try:
+                ck = np.load(ckpt_path)
+                if np.array_equal(ck["key"], ckpt_key):
+                    speeds = ck["speeds"]
+                    logging.info(f"Resuming pass 2 from {ckpt_path}")
+            except Exception:
+                pass
+        if speeds is None:
+            # ---- pass 1: streamed banded peak tracking (frame-exact)
+            t_start = time.perf_counter()
+            NLs = torch.full((frames_per_block,), NL, dtype=torch.int32, device=dev)
+            NUs = torch.full((frames_per_block,), NU, dtype=torch.int32, device=dev)
+            span_need = (frames_per_block - 1) * hop + fft_size
+            refined_parts = []
+            t_read = t_dev = 0.0
+            for t0 in range(0, n_frames, frames_per_block):
+                t1 = min(n_frames, t0 + frames_per_block)
+                lo = t0 * hop - pad
+                hi = (t1 - 1) * hop - pad + fft_size
+                rlo, rhi = max(0, lo), min(n, hi)
+                tr = time.perf_counter()
+                blk = reader.read(rlo, rhi - rlo)[:, channel].astype(np.float32)
+                t_read += time.perf_counter() - tr
+                if lo < 0 or hi > n:  # reflect only at the true file edges
+                    blk = np.pad(blk, (rlo - lo, hi - rhi), mode="reflect")
+                blk = np.pad(blk, (0, span_need - len(blk)))
+                td = time.perf_counter()
+                refined = track_peaks_span(
+                    torch.as_tensor(blk, device=dev), NLs, NUs, frames_per_block,
+                    fft_size, hop, zeropad, band=(NL - 1, NU + 1)).cpu().numpy()
+                t_dev += time.perf_counter() - td
+                refined_parts.append(refined[: t1 - t0])
+            timings["pass1_read_s"] = t_read
+            timings["pass1_device_s"] = t_dev  # incl. block upload + curve download
+            speeds = normalize_speeds(
+                torch.as_tensor(np.concatenate(refined_parts), device=dev),
+                center=log_center_for_band((NL - 1, NU + 1))).cpu().numpy()
+            if resume:
+                np.savez(ckpt_path, key=ckpt_key, speeds=speeds)
+            timings["pass1_s"] = time.perf_counter() - t_start
+
+        # ---- global position plan (host, frame-rate sized)
+        t_start = time.perf_counter()
+        plan = plan_positions_fast(speeds, hop, n)
+        drift = _drift_bucket(plan["drift"])
+        U = nt + drift
+        max_n = int(plan["max_n"])
+        T = len(plan["n"])
+        speeds32 = speeds.astype(np.float32)
+        out_path = out_base + "." + audio_io.out_ext()
+        # ---- pass 2: tile the segment axis, re-read input windows, append.
+        # The read span is padded to one fixed length for the whole file
+        # (zeros past the real span never fall inside a window)
+        bi_all = plan["base_int"]
+        span_fix = max(
+            int(bi_all[min(T, a + seg_tile) - 1]) - int(bi_all[a])
+            for a in range(0, T, seg_tile)) + max_n + 2 * U + 2
+        timings["plan_s"] = time.perf_counter() - t_start
+        timings.update(n=n, sr=sr, n_out=int(plan["n_out"]))
+        t_start = time.perf_counter()
+        written = 0
+        t_read = t_dev = t_write = 0.0
+        with audio_io.open_writer(out_path, sr, len(channels)) as writer:
+            for a in range(0, T, seg_tile):
+                b = min(T, a + seg_tile)
+                nseg = b - a
+                lo = int(plan["base_int"][a]) - U
+                hi = int(plan["base_int"][b - 1]) + max_n + U + 2
+                rlo, rhi = max(0, lo), min(n, hi)
+                tr = time.perf_counter()
+                buf = reader.read(rlo, rhi - rlo)[:, channels]  # (span, C)
+                t_read += time.perf_counter() - tr
+                pad_s = span_fix - buf.shape[0]
+                if pad_s > 0:
+                    buf = np.pad(buf, ((0, pad_s), (0, 0)))
+                td = time.perf_counter()
+                sig_dev = torch.as_tensor(np.ascontiguousarray(buf.T), device=dev)
+                # rows past nseg: no output (n = 0), speed 1
+                n_t = np.zeros(seg_tile, np.int32)
+                n_t[:nseg] = plan["n"][a:b]
+                bi_t = np.zeros(seg_tile, np.int32)
+                bi_t[:nseg] = plan["base_int"][a:b] - rlo
+                bf_t = np.zeros(seg_tile, np.float32)
+                bf_t[:nseg] = plan["base_frac"][a:b]
+                s_t = np.ones(seg_tile + 1, np.float32)
+                s_t[: nseg + 1] = speeds32[a: b + 1]
+                n_dev = torch.as_tensor(n_t, device=dev)
+                padded = run_banded_sinc(
+                    sig_dev, torch.as_tensor(s_t, device=dev), n_dev,
+                    torch.as_tensor(bi_t, device=dev), torch.as_tensor(bf_t, device=dev),
+                    max_n, nt, drift)
+                take = min(int(n_t.sum()), plan["n_out"] - written)
+                tile_out, _ = compact_padded_device(padded, n_dev, take)
+                tile_out = tile_out.T.contiguous().cpu().numpy()
+                t_dev += time.perf_counter() - td
+                tw = time.perf_counter()
+                writer.write(tile_out)
+                t_write += time.perf_counter() - tw
+                written += take
+                if written >= plan["n_out"]:
+                    break
+        timings["pass2_s"] = time.perf_counter() - t_start
+        timings["pass2_read_s"] = t_read
+        timings["pass2_device_dl_s"] = t_dev  # upload + compute + compaction + download
+        timings["pass2_write_s"] = t_write
+    if resume and os.path.exists(ckpt_path):
+        os.remove(ckpt_path)  # success: the checkpoint has served its purpose
+    logging.info(f"Wrote {out_path}")
+    return out_path
+
+
 def restore_file_fast(audio_path, f0_hz=None, tolerance_st: float = 1.0,
                       fft_size: int = 4096, fft_overlap: int = 8, zeropad: int = 2,
                       sinc_quality: int = 50, suffix: str = "", channel: int = 0,
@@ -858,21 +1033,24 @@ def restore_file_fast(audio_path, f0_hz=None, tolerance_st: float = 1.0,
     contract, resampling.py:211-231).  Auto-detects the pilot tone when
     ``f0_hz`` is None.  Returns the output path.
 
-    Takes that need the streamed tier (``stream=True``, a decoded size over
-    ``stream_threshold_bytes``, or an output past the int32 sample cap) raise
-    ``NotImplementedError``: that tier is not ported yet.
+    ``stream``: True forces the two-pass larger-than-memory path
+    (:func:`restore_file_streamed`); "auto" takes it when the DECODED size
+    (header frames x channels x 4 bytes) exceeds ``stream_threshold_bytes``.
+    Takes past the int32 sample cap always take it.
     """
     from pyaudiorestoration_tpu.utils import audio_io, streaming
 
     dev = resolve_device(device)
     # int32 sample counts cap the in-memory path at 2**31 samples
-    # (compact_padded_device); longer takes belong to the streamed tier
+    # (compact_padded_device); longer takes stream through the int64 host plan
     int32_guard = streaming.decoded_bytes(audio_path) // 4 > (1 << 31) // 2
     if int32_guard or streaming.should_stream(audio_path, stream,
                                               stream_threshold_bytes):
-        raise NotImplementedError(
-            "this take needs the streamed tier (restore_file_streamed), "
-            "which the PyTorch port does not have yet")
+        return restore_file_streamed(
+            audio_path, f0_hz=f0_hz, tolerance_st=tolerance_st,
+            fft_size=fft_size, fft_overlap=fft_overlap, zeropad=zeropad,
+            sinc_quality=sinc_quality, suffix=suffix, channel=channel,
+            use_channels=use_channels, device=dev)
 
     signal, sr, num_channels = audio_io.read_file(audio_path)
     channels = list(use_channels) if use_channels else list(range(num_channels))

@@ -8,6 +8,7 @@ taken only when asked for (the parity tests do).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -32,3 +33,12 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+def as_device_tensor(x, device="cuda", dtype=None):
+    """A tensor keeps its device (cast to ``dtype`` if given); anything else
+    is uploaded to ``device`` (:func:`resolve_device`)."""
+    if isinstance(x, torch.Tensor):
+        pin_fp32()
+        return x if dtype is None else x.to(dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=resolve_device(device))

@@ -152,7 +152,7 @@ def test_groups_split_at_the_int32_cap():
     cap = 1 << 31
     assert tb._groups([10, 20, 30, 40, 50], 2) == [[0, 1], [2, 3], [4]]
     assert tb._groups([cap // 3 + 1] * 3 + [10], 8) == [[0, 1], [2, 3]]
-    with pytest.raises(NotImplementedError, match="streamed tier"):
+    with pytest.raises(NotImplementedError, match="restore_fused_sharded"):
         tb._groups([10, cap], 8)
 
 

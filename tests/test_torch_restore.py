@@ -139,21 +139,33 @@ def test_cli_respeed_fast_on_cpu(tmp_path, capsys):
     assert ch == 2 and osr == sr and abs(len(res) - len(sig)) < 0.01 * len(sig)
 
 
-@pytest.mark.parametrize("argv", [["respeed", "take.wav"],
-                                  ["respeed", "--fast", "--stream", "take.wav"],
-                                  ["respeed", "--fast", "take.spd"]])
+@pytest.mark.parametrize("argv", [["respeed-batch", "take.wav", "--tier", "fixed"],
+                                  ["respeed-batch", "a.wav", "b.wav", "--tier", "fixed",
+                                   "--f0", "1000"],
+                                  ["respeed-batch", "take.wav", "--tier", "fixed",
+                                   "--device", "cpu"]])
 def test_cli_paths_not_ported_exit_clearly(argv, capsys):
+    """Every form of respeed is ported; respeed-batch's fixed-length tier
+    still exits with code 2 and says so."""
     assert cli.main(argv) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 
-def test_streamed_tier_raises_not_implemented(tmp_path):
+def test_streamed_tier_raises_not_implemented(tmp_path, monkeypatch):
+    """The streamed tier is ported: a forced stream, or a decoded size over
+    the threshold, no longer raises but routes to restore_file_streamed,
+    which writes the output."""
     src = tmp_path / "s.wav"
     audio_io.write_wav(src, _stereo_wow(seconds=0.5)[0], 22050)
-    with pytest.raises(NotImplementedError, match="streamed tier"):
-        rt.restore_file_fast(str(src), stream=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="streamed tier"):
-        rt.restore_file_fast(str(src), stream_threshold_bytes=1000, device="cpu")
+    calls = []
+    real = rt.restore_file_streamed
+    monkeypatch.setattr(rt, "restore_file_streamed",
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    kw = dict(fft_size=2048, zeropad=2, sinc_quality=8, device="cpu")
+    for i, extra in enumerate([dict(stream=True), dict(stream_threshold_bytes=1000)]):
+        out = rt.restore_file_fast(str(src), suffix=f"_{i}", **kw, **extra)
+        assert len(calls) == i + 1 and os.path.isfile(out)
+        assert audio_io.read_file(out)[2] == 2
 
 
 def test_cuda_device_raises_without_card():
@@ -166,8 +178,10 @@ def test_cuda_device_raises_without_card():
 
 
 def test_port_runs_without_importing_jax(tmp_path):
-    """The port's CLI, pipeline, batch and kernel modules run a whole
-    restore in a fresh interpreter without JAX ever being imported."""
+    """Every module of the port imports, and the CLI runs each form of
+    respeed (device path, streamed tier, a portable tracker with its .spd
+    saved, the .spd replay) in a fresh interpreter, without JAX ever being
+    imported."""
     src = tmp_path / "take.wav"
     audio_io.write_wav(src, _stereo_wow(seconds=1.0)[0], 22050)
     code = (
@@ -176,8 +190,24 @@ def test_port_runs_without_importing_jax(tmp_path):
         "import pyaudiorestoration_tpu_torch.pipelines.respeeder_device\n"
         "import pyaudiorestoration_tpu_torch.kernels.sinc_banded\n"
         "import pyaudiorestoration_tpu_torch.parallel.batch\n"
+        "import pyaudiorestoration_tpu_torch.ops.fourier\n"
+        "import pyaudiorestoration_tpu_torch.ops.correlation\n"
+        "import pyaudiorestoration_tpu_torch.ops.filters\n"
+        "import pyaudiorestoration_tpu_torch.ops.resampling\n"
+        "import pyaudiorestoration_tpu_torch.models.trackers\n"
+        "import pyaudiorestoration_tpu_torch.models.markers\n"
+        "import pyaudiorestoration_tpu_torch.utils.project\n"
+        "import pyaudiorestoration_tpu_torch.pipelines.respeeder\n"
         f"rc = cli.main(['respeed', '--fast', {str(src)!r}, '--device', 'cpu',"
         " '--fft-size', '2048', '--zeropad', '2', '--sinc-quality', '8'])\n"
+        "assert rc == 0, rc\n"
+        f"rc = cli.main(['respeed', {str(src)!r}, '--device', 'cpu', '--stream',"
+        " '--fft-size', '2048', '--zeropad', '2', '--sinc-quality', '8'])\n"
+        "assert rc == 0, rc\n"
+        f"rc = cli.main(['respeed', {str(src)!r}, '--device', 'cpu', '--mode',"
+        " 'Zero-Crossing', '--sinc-quality', '8', '--save-project'])\n"
+        "assert rc == 0, rc\n"
+        f"rc = cli.main(['respeed', {str(src)[:-4] + '.spd'!r}, '--device', 'cpu'])\n"
         "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('NO_JAX_OK')\n")
