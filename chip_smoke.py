@@ -2,36 +2,42 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1 and K2 (the banded windowed-sinc resampler's two entries,
-pyaudiorestoration_tpu_torch/csrc/sinc_banded.cu) from the checkout and, on
-a synthesized 30 s, 192 kHz stereo wow/flutter take (fft 4096, overlap 8,
+Builds the port's two libraries from the checkout, in parallel: kernels K1
+and K2 (the banded windowed-sinc resampler,
+pyaudiorestoration_tpu_torch/csrc/sinc_banded.cu, with nvcc) and the native
+audio codec (csrc/audioio.cpp, with the host C++ compiler).  Then, on a
+synthesized 30 s, 192 kHz stereo wow/flutter take (fft 4096, overlap 8,
 zeropad 2, sinc quality 50):
 
-  1-2  the card, the build
-  3    K1 against its plain PyTorch version at ``respeed --fast``'s shape
-  4    the ``respeed --fast`` CLI, file to file
+  1-2  the card, the builds
+  3    K1's plan entry against its plain PyTorch version at ``respeed
+       --fast``'s shape, on the take's own plan, for the take and for white
+       noise through the same plan; its time beside segment_grids + the
+       grid-taking entry, the plain version and its bound
+  4    the ``respeed --fast`` CLI, file to file: one K1 launch
   5    that restore on the card against the port's CPU path, small take
-  6    K2 against its plain version at the fused plan's shape
-  7    ``restore_fused_device`` on the stereo take, K1 then K2 (bench.py:130)
-  8    ``restore_fused_takes`` on 8 takes (bench.py:152), then a mixed-length
-       batch, each row bit-equal to its solo run
+  6    K2's plan entry likewise at the fused plan's shape
+  7    ``restore_fused_device`` on the stereo take, K1 then K2 (bench.py:130):
+       one launch each
+  8    ``restore_fused_takes`` on 8 takes (bench.py:152), one K1 launch, then
+       a mixed-length batch, each row bit-equal to its solo run
   9    the ``respeed-batch`` CLI on three 10 s takes; the card against the
        CPU path on a small batch
   10   the streamed tier through the auto route: a 12-minute 192 kHz stereo
        take (1.1 GB decoded, over the 1 GiB threshold) through
-       ``respeed --fast`` with no ``--stream``; then the streamed tier
-       against the in-memory path on the 30 s take
+       ``respeed --fast`` with no ``--stream``, one K1 launch a tile; then
+       the streamed tier against the in-memory path on the 30 s take
   11   the portable path at the CLI defaults (Peak, fft 1024/8/4, sinc 50):
        ``respeed --save-project`` on the 30 s take, then the saved ``.spd``;
-       K1 against its plain version at ``sinc_resample``'s shape; the card
-       against the CPU path on a small take
+       K1's grid-taking entry against its plain version at ``sinc_resample``'s
+       shape; the card against the CPU path on a small take
   12   the other trackers through the CLI on a 10 s 44.1 kHz take, and the
        float64 device ``sosfiltfilt`` against scipy
 
 Phases print on their own lines; the line before the last is a JSON object
 with each kernel's launches on the main paths, its error against the plain
-version and both times; the last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+version, its time, the plain version's, its bound and share of it; the last
+line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero with no result line.  Imports no JAX.
 """
 
@@ -43,6 +49,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -55,6 +62,10 @@ F0 = 3150.0  # the wow/flutter test tone of IEC 60386
 FFT, OVERLAP, ZEROPAD, QUALITY = 4096, 8, 2, 50
 TOL = 3e-5  # kernel vs plain version, as the JAX kernel vs its XLA tier
 MAX_N, DRIFT = int(FFT // OVERLAP * 1.1), 16  # the fused entries' (bench.py:95, 132)
+# the card's peaks for the bound (H100 SXM data sheet, dense, 700 W)
+PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
+FLOP_PER_TAP = 12  # sine by angle addition 3, denominator 1, reciprocal 4, quotient 2, MAC 2
+SEG_TILE_STREAM = 16384  # restore_file_streamed's seg_tile
 
 
 def tone_stability(sig, sr, smooth_periods=32):
@@ -81,18 +92,21 @@ def wow_take(sr, seconds, seed=0):
     return np.stack([mono, mono * 0.8], -1)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, inner=1):
     """Median milliseconds of ``fn`` over ``reps`` runs, timed with CUDA
-    events after one warm-up run."""
+    events after one warm-up run.  ``inner`` > 1 times that many runs back
+    to back between two events (the mean of them), so the host's work
+    between launches overlaps the device's and the time is the device's."""
     fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -119,42 +133,91 @@ def compare_compacted(a, b, what):
         raise RuntimeError(f"{what}: outputs disagree")
 
 
+ENTRIES = ("sinc_banded", "sinc_banded_plan", "sinc_banded_gathered",
+           "sinc_banded_gathered_plan")
+
+
 def reset_launches(kb):
-    kb.sinc_banded.launches = 0
-    kb.sinc_banded_gathered.launches = 0
+    for name in ENTRIES:
+        getattr(kb, name).launches = 0
 
 
-def check_k2(sig, plan):
-    """Phase 6: K2 against its plain version on the fused plan's own chunks
-    (the gathered tier's ``segment_chunks`` and window buffers)."""
+def launches(kb):
+    """Launches of (K1, K2) since the last reset, over both entries of each."""
+    return (kb.sinc_banded.launches + kb.sinc_banded_plan.launches,
+            kb.sinc_banded_gathered.launches + kb.sinc_banded_gathered_plan.launches)
+
+
+def bound(taps, nbytes):
+    """The least time the card could take, in ms, and which bounds it:
+    FLOP_PER_TAP a tap at the FP32 peak, or the bytes at the HBM rate."""
+    ops_ms = taps * FLOP_PER_TAP / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def check_plan_kernel(kernel, sig, plan, max_n, nt, drift, seed):
+    """K1's (``kernel`` "K1") or K2's ("K2") plan entry on the rows of the
+    (C, n) signal ``sig`` and its (T+1,) curve plan ``(speeds, n, base_int,
+    base_frac)``, flattened as run_banded_sinc flattens them, against the
+    plain version: for the take, then for unit-variance white noise through
+    the same plan.  Times the entry, segment_grids followed by the
+    grid-taking entry, and the plain version; returns the kernels-line dict."""
     from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
     from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
 
     speeds, n, bi, bf = plan
-    U = QUALITY + DRIFT
-    inputs = []
-    for ch in sig:  # the gathered tier runs channel by channel
-        flat = (ch, speeds[:-1], speeds[1:], n, bi, bf)
-        inputs += [(kb.gather_windows(ch, b, MAX_N + 2 * U, U), bs, rel, in_seg)
-                   for b, bs, rel, in_seg in rt.segment_chunks(flat, MAX_N)]
+    C, U = sig.shape[0], nt + drift
+    noise = torch.randn(sig.shape, generator=torch.Generator(device=sig.device)
+                        .manual_seed(seed), device=sig.device)
+    errs, args = [], None
+    for x in (sig, noise):
+        sig_flat, s_lo, s_hi, nn, bi_f, bf_f = rt._flatten_takes(
+            x, speeds.expand(C, -1), n.expand(C, -1), bi.expand(C, -1),
+            bf.expand(C, -1), max_n, nt, drift)
+        head = ((sig_flat, bi_f) if kernel == "K1" else
+                (kb.gather_windows(sig_flat, bi_f, max_n + 2 * U, U),))
+        args = (*head, s_lo, s_hi, nn, bf_f)
+        entry, plain, grid_entry = ((kb.sinc_banded_plan, kb.sinc_banded_plan_plain,
+                                     kb.sinc_banded) if kernel == "K1" else
+                                    (kb.sinc_banded_gathered_plan,
+                                     kb.sinc_banded_gathered_plan_plain,
+                                     kb.sinc_banded_gathered))
+        got = entry(*args, max_n, nt, drift)
+        ref = plain(*args, max_n, nt, drift)
+        torch.cuda.synchronize()
+        errs.append(float((got - ref).abs().max()))
+    rows, outputs = int(nn.shape[0]), int(nn.sum())
+    print(f"{kernel} plan entry vs plain: {rows} rows x max_n {max_n}, nt {nt}, "
+          f"drift {drift}: max|d| take {errs[0]:.3e}, white noise {errs[1]:.3e} "
+          f"(tol {TOL})")
+    if not max(errs) <= TOL:
+        raise RuntimeError(f"{kernel}'s plan entry disagrees with its plain version: "
+                           f"{errs}")
 
-    def kernel():
-        return [kb.sinc_banded_gathered(*a, QUALITY, DRIFT) for a in inputs]
+    def grids_then_entry():
+        return grid_entry(*head, *kb.segment_grids(s_lo, s_hi, nn, bf_f, max_n), nt,
+                          drift)
 
-    def plain():
-        return [kb.sinc_shift_mac(*a, MAX_N, QUALITY, DRIFT) for a in inputs]
-
-    err = max(float((g - r).abs().max()) for g, r in zip(kernel(), plain()))
-    rows = sum(a[0].shape[0] for a in inputs)
-    print(f"K2 vs plain: segments {rows} x max_n {MAX_N}, nt {QUALITY}, drift {DRIFT}, "
-          f"chunks {len(inputs)}, max|d| {err:.3e} (tol {TOL})")
-    if not err <= TOL:
-        raise RuntimeError(f"K2 disagrees with its plain version: {err}")
-    kernel_ms = cuda_ms(kernel, 20)
-    plain_ms = cuda_ms(plain, 5)
-    print(f"K2 whole take: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"({plain_ms / kernel_ms:.1f}x)")
-    return err, kernel_ms, plain_ms
+    # in turns: kernel, grids + grid entry, plain, kernel
+    kernel_ms = cuda_ms(lambda: entry(*args, max_n, nt, drift), 10, inner=10)
+    grids_ms = cuda_ms(grids_then_entry, 10, inner=10)
+    plain_ms = cuda_ms(lambda: plain(*args, max_n, nt, drift), 3)
+    kernel_ms2 = cuda_ms(lambda: entry(*args, max_n, nt, drift), 10, inner=10)
+    taps = outputs * 2 * nt
+    nbytes = (head[0].numel() * 4 + rows * 4 * (5 if kernel == "K1" else 4)
+              + rows * max_n * 4)
+    bound_ms, bound_by = bound(taps, nbytes)
+    ms = statistics.median([kernel_ms, kernel_ms2])
+    print(f"{kernel} at this shape: plan entry {kernel_ms:.4f} / {kernel_ms2:.4f} ms, "
+          f"segment_grids + grid entry {grids_ms:.4f} ms, plain {plain_ms:.3f} ms; "
+          f"{taps / 1e9:.4f} G taps, {nbytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms "
+          f"({bound_by}), share of bound {bound_ms / ms:.3f}")
+    return {"max_abs_err": max(errs), "max_abs_err_noise": errs[1], "ms": ms,
+            "plain_ms": plain_ms, "grids_then_grid_entry_ms": grids_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "library_ms": None, "taps": taps, "bytes": nbytes, "rows": rows,
+            "max_n": max_n}
 
 
 def fused_single(sig, NLs, NUs, band, n_plan, take, dev):
@@ -164,7 +227,7 @@ def fused_single(sig, NLs, NUs, band, n_plan, take, dev):
     from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
 
     hop = FFT // OVERLAP
-    grids, times, launches = {}, {}, {}
+    grids, times, counts = {}, {}, {}
     for backend in ("pallas", "xla"):
         def run(backend=backend):
             return rt.restore_fused_device(sig, NLs, NUs, FFT, hop, ZEROPAD, MAX_N,
@@ -175,12 +238,13 @@ def fused_single(sig, NLs, NUs, band, n_plan, take, dev):
         grids[backend] = run()
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
-        launches[backend] = (kb.sinc_banded.launches, kb.sinc_banded_gathered.launches)
+        counts[backend] = launches(kb)
         warm, runs = wall_s(run, 5)
         times[backend] = (cold, warm, runs)
-    k1, k2 = launches["pallas"][0], launches["xla"][1]
-    if k1 < 1 or k2 < 1 or launches["pallas"][1] or launches["xla"][0]:
-        raise RuntimeError(f"restore_fused_device launches (K1, K2): {launches}")
+    k1, k2 = counts["pallas"][0], counts["xla"][1]
+    if counts["pallas"] != (1, 0) or counts["xla"] != (0, 1):
+        raise RuntimeError(f"restore_fused_device launches (K1, K2): {counts}, "
+                           "want one a take")
     err = float((grids["pallas"] - grids["xla"]).abs().max())
     out, _ = rt.compact_padded_device(grids["pallas"][0], n_plan, int(n_plan.sum()))
     before = tone_stability(take[:, 0].astype(np.float64), SR)
@@ -220,17 +284,17 @@ def fused_batch(mono, NLs, NUs, band, dev):
     out = run()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    launches = kb.sinc_banded.launches
+    count = launches(kb)
     warm, runs = wall_s(run, 5)
     solo = rt.restore_fused_device(takes[0], NLs, NUs, FFT, hop, ZEROPAD, MAX_N, QUALITY,
                                    DRIFT, backend="pallas", band=band, device=dev)
     err = float((out[0] - solo).abs().max())
-    print(f"restore_fused_takes x{B}: grid {tuple(out.shape)}, K1 launches {launches}, "
+    print(f"restore_fused_takes x{B}: grid {tuple(out.shape)}, K1 launches {count[0]}, "
           f"first call {cold:.4f} s, warm {warm * 1e3:.3f} ms "
           f"(runs {', '.join(f'{r * 1e3:.3f}' for r in runs)}), "
           f"{B * SECONDS / warm:.1f}x realtime aggregate; row 0 vs solo max|d| {err:.3e}")
-    if launches < 1 or not err <= 1e-6:
-        raise RuntimeError(f"8-take batch: K1 launches {launches}, row 0 vs solo {err}")
+    if count != (1, 0) or not err <= 1e-6:
+        raise RuntimeError(f"8-take batch: launches {count}, row 0 vs solo {err}")
     del out, takes
 
     lengths = [5 * SR + 77, 3 * SR, 6 * SR]
@@ -253,7 +317,7 @@ def fused_batch(mono, NLs, NUs, band, dev):
                                "from its solo run")
     print(f"restore_fused_takes mixed lengths {lengths}: every row bit-equal to its "
           "solo run")
-    return launches
+    return count[0]
 
 
 def cli_batch():
@@ -277,7 +341,7 @@ def cli_batch():
                        "--zeropad", str(ZEROPAD)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = kb.sinc_banded.launches
+        count = launches(kb)
         flutter = []
         for p in paths:
             x = wavfile.read(p)[1].astype(np.float64)
@@ -285,11 +349,11 @@ def cli_batch():
             if not np.all(np.isfinite(y)) or abs(len(y) - len(x)) > 0.01 * len(x):
                 raise RuntimeError(f"respeed-batch: bad output for {p}: {y.shape}")
             flutter.append((tone_stability(x, SR), tone_stability(y, SR)))
-    print(f"respeed-batch --device cuda: 3 takes {lengths}, rc {rc}, K1 launches "
-          f"{launches}, wall {wall:.3f} s; flutter "
+    print(f"respeed-batch --device cuda: 3 takes {lengths} in one group, rc {rc}, "
+          f"K1 launches {count[0]}, wall {wall:.3f} s; flutter "
           + ", ".join(f"{a:.2e} -> {b:.2e}" for a, b in flutter))
-    if rc != 0 or launches < 1 or not all(b < 0.2 * a for a, b in flutter):
-        raise RuntimeError("respeed-batch failed on the card")
+    if rc != 0 or count != (1, 0) or not all(b < 0.2 * a for a, b in flutter):
+        raise RuntimeError(f"respeed-batch failed on the card: rc {rc}, launches {count}")
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = []
@@ -303,7 +367,7 @@ def cli_batch():
         for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
             compare_compacted(wavfile.read(a)[1], wavfile.read(b)[1],
                               f"respeed-batch cuda vs cpu, take {i} (22.05 kHz)")
-    return launches
+    return count[0]
 
 
 LONG_MINUTES = 12  # 1.106 GB decoded at 192 kHz stereo float32: over 1 GiB
@@ -351,6 +415,7 @@ def streamed_phase(take, dev):
     from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
 
     n = int(LONG_MINUTES * 60 * SR)
+    tiles = -(-(n // (FFT // OVERLAP)) // SEG_TILE_STREAM)  # one K1 launch a tile
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "long.wav")
         t0 = time.perf_counter()
@@ -373,13 +438,14 @@ def streamed_phase(take, dev):
             wall = time.perf_counter() - t0
         finally:
             rt.restore_file_streamed = real
-        launches = kb.sinc_banded.launches
+        count = launches(kb)
         out = os.path.join(tmp, "long_res.wav")
         n_out = len(wavfile.read(out, mmap=True)[1])
         before, after = (tone_stability(head(p, 30.0), SR) for p in (src, out))
     print(f"streamed tier, auto route: {LONG_MINUTES} min 192 kHz stereo, "
           f"{size / 1e9:.3f} GB on disk (synthesized and written in {synth_s:.1f} s); "
-          f"rc {rc}, K1 launches {launches}, pass 1 {timings.get('pass1_s', 0):.3f} s "
+          f"rc {rc}, K1 launches {count[0]} (tiles {tiles}), "
+          f"pass 1 {timings.get('pass1_s', 0):.3f} s "
           f"(read {timings.get('pass1_read_s', 0):.3f}, device "
           f"{timings.get('pass1_device_s', 0):.3f}), plan {timings.get('plan_s', 0):.3f} s, "
           f"pass 2 {timings.get('pass2_s', 0):.3f} s (read "
@@ -388,9 +454,9 @@ def streamed_phase(take, dev):
           f"{timings.get('pass2_write_s', 0):.3f}), wall {wall:.3f} s, "
           f"{n / SR / wall:.1f}x realtime; output {n_out} frames of {n}; "
           f"flutter (first 30 s) {before:.2e} -> {after:.2e}")
-    if rc != 0 or launches < 1 or "pass2_s" not in timings:
-        raise RuntimeError(f"streamed restore: rc {rc}, K1 launches {launches}, "
-                           f"timings {sorted(timings)}")
+    if rc != 0 or count != (tiles, 0) or "pass2_s" not in timings:
+        raise RuntimeError(f"streamed restore: rc {rc}, launches {count} for {tiles} "
+                           f"tiles, timings {sorted(timings)}")
     if abs(n_out - n) > 0.01 * n or not after < 0.2 * before:
         raise RuntimeError("streamed restore: bad length or flutter")
 
@@ -406,7 +472,7 @@ def streamed_phase(take, dev):
           f"max|d| {err:.3e} (tol 1e-5)")
     if not err <= 1e-5:
         raise RuntimeError("the streamed tier disagrees with the in-memory path")
-    return launches
+    return count[0]
 
 
 def timed_cli(argv, reps):
@@ -420,11 +486,11 @@ def timed_cli(argv, reps):
     rc = cli.main(argv)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    launches = kb.sinc_banded.launches
+    count = launches(kb)
     if rc != 0:
         raise RuntimeError(f"{argv}: rc {rc}")
     warm, runs = wall_s(lambda: cli.main(argv), reps)
-    return launches, cold, warm, runs
+    return count[0], cold, warm, runs
 
 
 def portable_phase(take, sig, dev):
@@ -438,7 +504,7 @@ def portable_phase(take, sig, dev):
 
     n = take.shape[0]
     before = tone_stability(take[:, 0].astype(np.float64), SR)
-    launches = {}
+    counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "take.wav")
         wavfile.write(src, SR, take)
@@ -449,7 +515,7 @@ def portable_phase(take, sig, dev):
             k1, cold, warm, runs = timed_cli(argv, 3)
             out = wavfile.read(os.path.join(tmp, "take_res.wav"))[1]
             after = tone_stability(out[:, 0].astype(np.float64), SR)
-            launches[name] = k1
+            counts[name] = k1
             print(f"{name}: {SECONDS:.0f} s take at the CLI defaults, K1 launches {k1}, "
                   f"cold {cold:.3f} s, warm {warm:.3f} s "
                   f"(runs {', '.join(f'{r:.3f}' for r in runs)}), "
@@ -473,11 +539,16 @@ def portable_phase(take, sig, dev):
 
     err = max(float((g - r).abs().max())
               for g, r in zip(run(kb.sinc_banded), run(kb.sinc_banded_plain)))
-    kernel_ms = cuda_ms(lambda: run(kb.sinc_banded), 20)
-    plain_ms = cuda_ms(lambda: run(kb.sinc_banded_plain), 5)
-    print(f"K1 vs plain at sinc_resample's shape: {len(sig)} x {tuple(rel.shape)}, "
-          f"nt {QUALITY}, drift {drift}, max|d| {err:.3e} (tol {TOL}); kernel "
-          f"{kernel_ms:.3f} ms, plain {plain_ms:.3f} ms ({plain_ms / kernel_ms:.1f}x)")
+    kernel_ms = cuda_ms(lambda: run(kb.sinc_banded), 10, inner=10)
+    plain_ms = cuda_ms(lambda: run(kb.sinc_banded_plain), 3)
+    taps = len(sig) * rel.numel() * 2 * QUALITY  # every lane is valid here
+    nbytes = len(sig) * (sig[0].numel() * 4 + anchors.numel() * 4 + rel.numel() * 13)
+    bound_ms, bound_by = bound(taps, nbytes)
+    print(f"K1 grid entry vs plain at sinc_resample's shape: {len(sig)} x "
+          f"{tuple(rel.shape)}, nt {QUALITY}, drift {drift}, max|d| {err:.3e} "
+          f"(tol {TOL}); kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms; "
+          f"{taps / 1e9:.4f} G taps, bound {bound_ms:.4f} ms ({bound_by}), share "
+          f"{bound_ms / kernel_ms:.3f}")
     if not err <= TOL:
         raise RuntimeError(f"K1 disagrees with its plain version at sinc_resample: {err}")
 
@@ -491,8 +562,10 @@ def portable_phase(take, sig, dev):
                 src, fft_size=2048, fft_overlap=8, zeropad=2, sinc_quality=30,
                 device=d)[0])[1][:, 0])
     compare_compacted(*outs, "portable respeed cuda vs cpu (2.5 s, 22.05 kHz)")
-    return launches, {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                      "rows": int(rel.shape[0]), "drift": drift}
+    return counts, {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share_of_bound": bound_ms / kernel_ms, "library_ms": None,
+                    "taps": taps, "rows": int(rel.shape[0]), "drift": drift}
 
 
 def modes_phase(dev):
@@ -546,6 +619,7 @@ def main():
     from pyaudiorestoration_tpu_torch import cli
     from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
     from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+    from pyaudiorestoration_tpu_torch.utils import audio_io
     from pyaudiorestoration_tpu_torch.utils.convert import plan_to_torch
     from pyaudiorestoration_tpu_torch.utils.device import resolve_device
 
@@ -558,13 +632,31 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
     dev = resolve_device("cuda")
 
-    # 2. build K1 and K2 (one library) from the checkout
-    t0 = time.perf_counter()
-    so = kb.build()
-    build_s = time.perf_counter() - t0
-    print(f"build: {so.name} in {build_s:.2f} s")
+    # 2. build both libraries from the checkout, together: K1 and K2 (nvcc)
+    # and the audio codec (the host C++ compiler)
+    built = {}
 
-    # 3. K1 against its plain version at the main path's shape
+    def build(name, fn):
+        t = time.perf_counter()
+        try:
+            built[name] = (fn(), time.perf_counter() - t)
+        except Exception as e:  # reported below, in the main thread
+            built[name] = (e, time.perf_counter() - t)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=a)
+               for a in (("kernels", kb.build), ("codec", audio_io.build))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    build_s = time.perf_counter() - t0
+    for name, (res, secs) in built.items():
+        if isinstance(res, Exception):
+            raise RuntimeError(f"building the {name} failed") from res
+        print(f"build: {name} {res.name} in {secs:.2f} s")
+
+    # 3. K1's plan entry against its plain version at the main path's shape
     take = wow_take(SR, SECONDS)
     hop = FFT // OVERLAP
     n = take.shape[0]
@@ -579,31 +671,10 @@ def main():
     plan = rt.plan_positions_fast(speeds.cpu().numpy(), hop, n)
     p = plan_to_torch(plan, dev)
     drift = rt._drift_bucket(p["drift"])
-    max_n = p["max_n"]
     if drift > 64:
         raise RuntimeError(f"take's drift bucket {drift} is over 64")
-    C = sig.shape[0]
-    # the flattening and chunks run_banded_sinc feeds K1 on the main path
-    flat = rt._flatten_takes(
-        sig, speeds.expand(C, -1), p["n"].expand(C, -1), p["base_int"].expand(C, -1),
-        p["base_frac"].expand(C, -1), max_n, QUALITY, drift)
-    chunks = list(rt.segment_chunks(flat, max_n))
-
-    def run(fn):
-        return [fn(flat[0], *c, QUALITY, drift) for c in chunks]
-
-    got = run(kb.sinc_banded)
-    ref = run(kb.sinc_banded_plain)
-    torch.cuda.synchronize()
-    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-    print(f"K1 vs plain: segments {flat[3].shape[0]} x max_n {max_n}, nt {QUALITY}, "
-          f"drift {drift}, chunks {len(chunks)}, max|d| {err:.3e} (tol {TOL})")
-    if not err <= TOL:
-        raise RuntimeError(f"K1 disagrees with its plain version: {err}")
-    kernel_ms = cuda_ms(lambda: run(kb.sinc_banded), 20)
-    plain_ms = cuda_ms(lambda: run(kb.sinc_banded_plain), 5)
-    print(f"K1 whole take: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"({plain_ms / kernel_ms:.1f}x)")
+    k1 = check_plan_kernel("K1", sig, (speeds, p["n"], p["base_int"], p["base_frac"]),
+                           p["max_n"], QUALITY, drift, seed=3)
 
     # 4. the main path end to end through the CLI
     argv = ["--fast", "--device", "cuda", "--fft-size", str(FFT), "--fft-overlap",
@@ -611,14 +682,14 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "take.wav")
         wavfile.write(src, SR, take)
-        kb.sinc_banded.launches = 0
+        reset_launches(kb)
         t0 = time.perf_counter()
         rc = cli.main(["respeed", src, *argv])
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        launches = kb.sinc_banded.launches
-        if rc != 0 or launches < 1:
-            raise RuntimeError(f"respeed --fast: rc {rc}, K1 launches {launches}")
+        k1_fast = launches(kb)
+        if rc != 0 or k1_fast != (1, 0):
+            raise RuntimeError(f"respeed --fast: rc {rc}, launches {k1_fast}, want one K1")
         warm = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -633,7 +704,7 @@ def main():
         raise RuntimeError(f"output length {len(out)} vs input {n}")
     before = tone_stability(take[:, 0].astype(np.float64), SR)
     after = tone_stability(out[:, 0].astype(np.float64), SR)
-    print(f"respeed --fast: {SECONDS:.0f} s take, K1 launches {launches}, "
+    print(f"respeed --fast: {SECONDS:.0f} s take, K1 launches {k1_fast[0]}, "
           f"cold {cold_s:.3f} s (+ build {build_s:.2f} s), warm {warm_s:.3f} s "
           f"(runs {', '.join(f'{w:.3f}' for w in warm)}), "
           f"{SECONDS / warm_s:.1f}x realtime; flutter {before:.2e} -> {after:.2e}")
@@ -652,13 +723,13 @@ def main():
                 device=d))[1])
     compare_compacted(*outs, "cuda vs cpu (2.5 s, 22.05 kHz)")
 
-    # 6. K2 against its plain version at the fused path's shape
+    # 6. K2's plan entry against its plain version at the fused path's shape
     NLs = torch.full((n_frames,), NL, dtype=torch.int32, device=dev)
     NUs = torch.full((n_frames,), NU, dtype=torch.int32, device=dev)
     band = (NL - 1, NU + 1)
     fplan = rt._fused_plan(sig[0], NLs, NUs, FFT, hop, ZEROPAD, MAX_N, QUALITY, DRIFT,
                            "blackmanharris", band)
-    err2, kernel2_ms, plain2_ms = check_k2(sig, fplan)
+    k2 = check_plan_kernel("K2", sig, fplan, MAX_N, QUALITY, DRIFT, seed=4)
 
     # 7-9. the fused single take, the batches and respeed-batch
     k1_fused, k2_fused = fused_single(sig, NLs, NUs, band, fplan[1], take, dev)
@@ -671,23 +742,26 @@ def main():
     modes_phase(dev)
 
     common = {"route": "cuda", "source": "pyaudiorestoration_tpu_torch/csrc/sinc_banded.cu"}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "sinc_banded", **common,
          "replaces": "pyaudiorestoration_tpu/kernels/sinc_pallas.py:253",
-         "launches": k1_fused,
-         "launches_by_path": {"restore_fused_device pallas": k1_fused,
-                              "respeed --fast": launches,
+         "entry": "sinc_banded_plan_f32", "launches": k1_fast[0],
+         **{k: k1[k] for k in keys},
+         "launches_by_path": {"respeed --fast": k1_fast[0],
+                              "restore_fused_device pallas": k1_fused,
                               "restore_fused_takes x8": k1_batch,
                               "respeed-batch": k1_cli,
                               "respeed (streamed, auto route)": k1_stream,
                               **k1_portable},
-         "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-         "sinc_resample_shape": k1_resample},
+         **{k: v for k, v in k1.items() if k not in keys},
+         "grid_entry_at_sinc_resample": k1_resample},
         {"name": "sinc_banded_gathered", **common,
          "replaces": "pyaudiorestoration_tpu/kernels/sinc_pallas.py:350",
-         "launches": k2_fused,
+         "entry": "sinc_banded_gathered_plan_f32", "launches": k2_fused,
+         **{k: k2[k] for k in keys},
          "launches_by_path": {"restore_fused_device xla": k2_fused},
-         "max_abs_err": err2, "ms": kernel2_ms, "plain_ms": plain2_ms}]}))
+         **{k: v for k, v in k2.items() if k not in keys}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

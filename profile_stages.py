@@ -2,6 +2,7 @@
 CUDA card, on chip_smoke's 30 s, 192 kHz stereo take.
 
     python3 profile_stages.py [--path fast|fused|batch|stream|portable] [--runs 5]
+    python3 profile_stages.py --sass
 
 ``fast``: ``restore_file_fast`` (``respeed --fast``), file to file.
 ``fused``: ``restore_fused_device`` on the stereo take (bench.py:130-133).
@@ -11,7 +12,10 @@ CUDA card, on chip_smoke's 30 s, 192 kHz stereo take.
 ``portable``: ``respeeder.restore_file`` (``respeed`` at the CLI defaults:
 Peak, fft 1024/8/4, sinc 50), file to file.
 The fused paths run K1 (backend "pallas"), as the card's "auto" does; the
-streamed and portable paths run K1 through their own resamplers.
+streamed and portable paths run K1 through their own resamplers.  The sinc
+stage of every path includes its grids: K1's plan entry builds them.
+``--sass``: build K1/K2 and count, from ``cuobjdump -sass``, the issued
+instructions a tap of each unrolled tap loop (a block of 7 taps, or two).
 
 Prints the card's name and power limit, then the median wall milliseconds of
 each stage (a synchronize after each), then one ``torch.profiler`` run of
@@ -21,6 +25,8 @@ its idle share of the wall, and the device time by kernel.  Imports no JAX.
 
 import argparse
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import tempfile
@@ -87,7 +93,7 @@ def fast_stages(src, rt, plan_to_torch, audio_io, dev):
     return s.done()
 
 
-def fused_stages(x_host, shared_curve, NLs, NUs, band, rt, kb, dev):
+def fused_stages(x_host, shared_curve, NLs, NUs, band, rt, dev):
     """One run of the fused path split into stages: rows of ``x_host`` are
     the channels of one take (``shared_curve``, restore_fused_device) or
     independent takes (restore_fused_takes), through K1."""
@@ -103,10 +109,8 @@ def fused_stages(x_host, shared_curve, NLs, NUs, band, rt, kb, dev):
     B = x.shape[0]
     flat = rt._flatten_takes(x, speeds.expand(B, -1), n.expand(B, -1),
                              bi.expand(B, -1), bf.expand(B, -1), MAX_N, QUALITY, DRIFT)
-    chunks = list(rt.segment_chunks(flat, MAX_N))
-    s.mark("grids")
-    out = torch.cat([kb.sinc_banded(flat[0], *c, QUALITY, DRIFT) for c in chunks])
-    s.mark("sinc")
+    out = rt._sinc_segments_backend(flat, MAX_N, QUALITY, DRIFT, "pallas")
+    s.mark("sinc")  # K1's plan entry, its grids included
     out.cpu()
     s.mark("download")
     return s.done()
@@ -190,19 +194,62 @@ def device_profile(fn):
         print(f"  {us / 1e3:9.3f} ms  n={count:4d}  {name}")
 
 
+def sass_report(so):
+    """Instructions a tap of each unrolled tap loop of the kernels in the
+    shared library ``so``: every backward branch whose body holds a MUFU.RCP
+    and the taper's LDS.128 loads (two a block of 7 taps)."""
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(shutil.which("nvcc") or
+                                                              "/usr/local/cuda/bin/nvcc")),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    for func in re.split(r"\n\s+Function : ", sass)[1:]:
+        name = func.split("\n")[0]
+        entry = re.search(r"WindowE(\d)ELNS_5GridsE(\d)", name)
+        label = ("K1" if entry.group(1) == "1" else "K2") + (
+            " plan" if entry.group(2) == "0" else " grids") if entry else name[:60]
+        ins = [(int(m.group(1), 16), m.group(2).strip()) for m in
+               re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", func)]
+        index = {a: i for i, (a, _) in enumerate(ins)}
+        print(f"{label}: {len(ins)} instructions")
+        for i, (a, text) in enumerate(ins):
+            m = re.search(r"BRA (?:!?U?P\d, )?0x([0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) >= a or int(m.group(1), 16) not in index:
+                continue
+            body = [t for _, t in ins[index[int(m.group(1), 16)]:i + 1]]
+            taps = 7 * sum("LDS.128" in t for t in body) // 2
+            if not taps or not any("MUFU.RCP" in t for t in body) or len(body) > 400:
+                continue
+            ops = {}
+            for t in body:
+                op = re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
+                ops[op] = ops.get(op, 0) + 1
+            predicated = sum(t.startswith("@") for t in body)
+            print(f"  loop {int(m.group(1), 16):#06x}-{a:#06x}: {len(body)} instructions "
+                  f"for {taps} taps = {len(body) / taps:.2f} a tap ({predicated} "
+                  f"predicated); " + ", ".join(f"{k} {v}" for k, v in
+                                              sorted(ops.items(), key=lambda kv: -kv[1])))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=["fast", "fused", "batch", "stream", "portable"],
                     default="fast")
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--sass", action="store_true",
+                    help="count the tap loops' instructions in the built kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_stages: torch sees no CUDA card")
-    from pyaudiorestoration_tpu.utils import audio_io  # the path's own codec
-    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    if args.sass:
+        from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+
+        sass_report(kb.build())
+        return
     from pyaudiorestoration_tpu_torch.ops import resampling as rs
     from pyaudiorestoration_tpu_torch.pipelines import respeeder as rp
     from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+    from pyaudiorestoration_tpu_torch.utils import audio_io
     from pyaudiorestoration_tpu_torch.utils.convert import plan_to_torch
     from pyaudiorestoration_tpu_torch.utils.device import resolve_device
 
@@ -259,7 +306,7 @@ def main():
 
             def stages():
                 return fused_stages(x_host, args.path == "fused", NLs, NUs, band, rt,
-                                    kb, dev)
+                                    dev)
 
             x_dev = torch.as_tensor(x_host, device=dev)
 

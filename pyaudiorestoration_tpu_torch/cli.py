@@ -83,7 +83,7 @@ def build_parser():
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.flac_out is not None:
-        from pyaudiorestoration_tpu.utils import audio_io
+        from .utils import audio_io
 
         audio_io.set_output_format("flac", bits=args.flac_out,
                                    level=0 if args.flac_fast else 1)

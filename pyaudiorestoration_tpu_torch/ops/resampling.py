@@ -33,11 +33,10 @@ import os
 import numpy as np
 import torch
 
-from pyaudiorestoration_tpu.utils import audio_io
-from pyaudiorestoration_tpu.utils.timing import log_duration
-
 from ..kernels.sinc_banded import sinc_banded
+from ..utils import audio_io
 from ..utils.device import as_device_tensor
+from ..utils.timing import log_duration
 
 __all__ = [
     "speed_to_pos", "lag_to_pos", "sinc_resample", "linear_resample",

@@ -13,8 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pyaudiorestoration_tpu.utils import audio_io
-
+from ..utils import audio_io, streaming
 from ..utils.device import resolve_device
 from . import sharded
 
@@ -126,8 +125,6 @@ def restore_batch_files_fused(paths, f0_hz=None, tolerance_st: float = 1.0,
     batch, it wraps the sharded plan's anchors past 2**31 and unwraps them on
     the host, and that mesh tier is not ported yet.  ``f0_hz=None`` probes
     the pilot tone from the first file."""
-    from pyaudiorestoration_tpu.utils import streaming
-
     from ..pipelines.respeeder_device import (_band_limits, _probe_f0,
                                               _restore_fused_takes)
 

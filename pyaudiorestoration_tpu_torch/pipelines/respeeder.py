@@ -18,12 +18,10 @@ import logging
 
 import numpy as np
 
-from pyaudiorestoration_tpu.utils import audio_io
-
 from ..models import markers as mk
 from ..models import trackers
 from ..ops import fourier, resampling
-from ..utils import project
+from ..utils import audio_io, project, streaming
 
 DEFAULT_BANDS = (0, 9999999)
 
@@ -102,8 +100,6 @@ def run_project(project_path, audio_path=None, out_suffix="", stream="auto",
     ``stream``: larger-than-memory replay -- the master curve (frame-rate
     host math from the markers, no audio decode required) drives the
     two-pass streamed restore through its ``speed_curve`` override."""
-    from pyaudiorestoration_tpu.utils import streaming
-
     proj = project.Project.load(project_path)
     audio_path = audio_path or proj.settings.get("source") or proj.settings.get("reference")
     if streaming.should_stream(audio_path, stream, stream_threshold_bytes):
@@ -156,8 +152,6 @@ def restore_file(audio_path, mode="Peak", fft_size=1024, fft_overlap=4, zeropad=
     duration = len(signal) / sr
     hop = fft_size // fft_overlap
     if blockwise:
-        from pyaudiorestoration_tpu.utils import streaming
-
         if trail is None:
             probe, _ = compute_spectrum(signal[: min(len(signal), 1 << 20)],
                                         sr, fft_size, fft_overlap, zeropad,

@@ -3,7 +3,7 @@ pyaudiorestoration_tpu/pipelines/respeeder_device.py).
 
 ``respeed --fast`` (``restore_file_fast``):
 
-  read (native C++ codec, shared with the JAX package)
+  read (the port's native C++ codec, utils/audio_io.py)
    -> pilot-tone probe (host)
    -> banded peak tracking -> speed curve centred with exact limbs  (device)
    -> position plan in float64                                      (host)
@@ -40,10 +40,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.sinc_banded import gather_windows, sinc_banded, sinc_banded_gathered
+from ..kernels.sinc_banded import (fixed_order_cumsum, gather_windows,
+                                   segment_grids, sinc_banded_gathered_plan,
+                                   sinc_banded_plan)
 from ..models.trackers import masked_peak_refine
 from ..ops.fourier import get_window
 from ..ops.fourier import reflect_pad as _reflect_pad
+from ..utils import audio_io, streaming
 from ..utils.convert import plan_to_torch
 from ..utils.device import resolve_device
 
@@ -369,44 +372,6 @@ def _drift_bucket(drift: int) -> int:
 
 # ------------------------------------------------------------ banded sinc
 
-def fixed_order_cumsum(x, base: int = 16):
-    """Float32 cumsum over the last axis in one fixed order: sequential
-    inside ``base``-element blocks, block totals scanned the same way
-    recursively and added back.  That is the order of XLA's CPU cumsum, so
-    the sinc grids are bit-identical to the JAX reference's on the CPU, and
-    the same on every run on the card (``torch.cumsum`` adds in float64 on
-    the CPU and in a scan order of its own on CUDA; the grids' ``rel`` sums
-    ~max_n terms, where a few ulps are ~1e-4 samples of position)."""
-    n = x.shape[-1]
-    if n <= base:
-        cols = list(torch.unbind(x, dim=-1))
-        for i in range(1, n):
-            cols[i] = cols[i - 1] + cols[i]
-        return torch.stack(cols, dim=-1) if n else x
-    nb = -(-n // base)
-    xb = F.pad(x, (0, nb * base - n)).reshape(*x.shape[:-1], nb, base)
-    local = fixed_order_cumsum(xb, base)
-    carry = fixed_order_cumsum(local[..., -1], base)
-    excl = F.pad(carry[..., :-1], (1, 0))
-    return (local + excl[..., None]).reshape(*x.shape[:-1], nb * base)[..., :n]
-
-
-def segment_grids(s_lo, s_hi, nn, bf, max_n: int):
-    """Per-segment block-speed / position grids (the reference's lerped block
-    speeds, resampling.py:107-119).  Returns (bs, rel, in_seg): (T, max_n)
-    lerped block speeds, positions relative to the integer window anchor,
-    and the validity mask."""
-    dev = s_lo.device
-    kf = torch.arange(max_n, dtype=torch.float32, device=dev)[None, :]
-    ki = torch.arange(max_n, dtype=torch.int32, device=dev)[None, :]
-    denom = torch.clamp(nn[:, None] - 1, min=1).to(torch.float32)
-    bs = s_lo[:, None] + kf / denom * (s_hi[:, None] - s_lo[:, None])
-    in_seg = ki < nn[:, None]
-    inv = torch.where(in_seg, 1.0 / bs, 0.0)
-    rel = fixed_order_cumsum(inv) + bf[:, None]
-    return bs, rel, in_seg
-
-
 def _flatten_takes(xb, speeds, nn, bi, bf, max_n: int, nt: int, drift: int):
     """Concatenate a batch of rows (B, n) with a zero guard between them wide
     enough that no sinc window crosses into the next row, and flatten every
@@ -420,18 +385,15 @@ def _flatten_takes(xb, speeds, nn, bi, bf, max_n: int, nt: int, drift: int):
             nn.reshape(-1), (bi + offs).reshape(-1), bf.reshape(-1))
 
 
-SEG_TILE = 4096
+SEG_TILE = 4096  # rows per call on the CPU, so the plain version's grids bound memory
 
 
-def segment_chunks(flat, max_n: int, seg_tile: int = SEG_TILE):
-    """Yield the kernels' inputs ``(base_int, bs, rel, in_seg)`` over the
-    flattened segment axis in ``seg_tile`` chunks, so the (chunk, max_n)
-    grids bound memory whatever the take length."""
-    _, s_lo, s_hi, n_flat, bi_flat, bf_flat = flat
-    for a in range(0, n_flat.shape[0], seg_tile):
-        b = a + seg_tile
-        yield (bi_flat[a:b],) + segment_grids(s_lo[a:b], s_hi[a:b], n_flat[a:b],
-                                              bf_flat[a:b], max_n)
+def _row_chunks(T: int, device):
+    """Row ranges of the sinc calls: all T rows in one kernel launch on the
+    card; ``SEG_TILE``-row chunks on the CPU (the plain version's (rows,
+    max_n) grids and shift-MAC temporaries bound memory there)."""
+    step = T if torch.device(device).type == "cuda" else SEG_TILE
+    return [(a, a + step) for a in range(0, T, max(step, 1))]
 
 
 def _cat_rows(rows, max_n: int, device):
@@ -442,17 +404,15 @@ def _cat_rows(rows, max_n: int, device):
 
 def sinc_banded_segments(sig, s_lo, s_hi, n, base_int, base_frac, max_n: int,
                          nt: int = 50, drift: int = 32):
-    """The gathered-window tier over per-segment endpoint speeds: each chunk
-    of :func:`segment_chunks` gathers its (chunk, max_n + 2U) window buffer,
-    zero outside the signal, and runs K2 on it (K2's plain version on the
-    CPU).  Returns (T, max_n)."""
+    """The gathered-window tier over per-segment endpoint speeds: gather the
+    (rows, max_n + 2U) window buffer, zero outside the signal, and run K2's
+    plan entry on it (its plain version on the CPU).  Returns (T, max_n)."""
     U = nt + drift
-    flat = (sig, s_lo, s_hi, n, base_int, base_frac)
     return _cat_rows([
-        sinc_banded_gathered(gather_windows(sig, bi, max_n + 2 * U, U), bs, rel,
-                             in_seg, nt, drift)
-        for bi, bs, rel, in_seg in segment_chunks(flat, max_n)],
-        max_n, sig.device)
+        sinc_banded_gathered_plan(gather_windows(sig, base_int[a:b], max_n + 2 * U, U),
+                                  s_lo[a:b], s_hi[a:b], n[a:b], base_frac[a:b], max_n,
+                                  nt, drift)
+        for a, b in _row_chunks(n.shape[0], sig.device)], max_n, sig.device)
 
 
 def sinc_banded_device(sig, speeds, n, base_int, base_frac, max_n: int,
@@ -485,30 +445,31 @@ def _sinc_backend(backend: str, device) -> str:
 def _sinc_segments_backend(flat, max_n: int, nt: int, drift: int,
                            backend: str = "pallas"):
     """Banded sinc over the flattened segments of :func:`_flatten_takes`:
-    K1 over each chunk of :func:`segment_chunks`, or the gathered tier."""
-    sig_flat = flat[0]
+    K1's plan entry, or the gathered tier."""
+    sig_flat, s_lo, s_hi, n, base_int, base_frac = flat
     if _sinc_backend(backend, sig_flat.device) == "xla":
         return sinc_banded_segments(*flat, max_n, nt, drift)
-    return _cat_rows([sinc_banded(sig_flat, bi, bs, rel, in_seg, nt, drift)
-                      for bi, bs, rel, in_seg in segment_chunks(flat, max_n)],
-                     max_n, sig_flat.device)
+    return _cat_rows([
+        sinc_banded_plan(sig_flat, base_int[a:b], s_lo[a:b], s_hi[a:b], n[a:b],
+                         base_frac[a:b], max_n, nt, drift)
+        for a, b in _row_chunks(n.shape[0], sig_flat.device)], max_n, sig_flat.device)
 
 
 def run_banded_sinc(sig, speeds, n, base_int, base_frac, max_n: int,
                     nt: int, drift: int, backend: str = "auto"):
-    """Banded sinc for a (C, n) or (n,) signal through one shared plan.
-    Under ``"pallas"`` channels flatten into the segment axis (one K1
-    stream), as the JAX Pallas path does; under ``"xla"`` each channel runs
-    the gathered tier.  Returns (C, T, max_n) or (T, max_n)."""
-    if _sinc_backend(backend, sig.device) == "xla":
-        return sinc_banded_device(sig, speeds, n, base_int, base_frac, max_n,
-                                  nt, drift)
+    """Banded sinc for a (C, n) or (n,) signal through one shared plan: the
+    channels flatten into the segment axis with zero guards, as the JAX
+    Pallas path does, so either backend (:func:`_sinc_backend`) launches
+    its kernel once on the card.  A row's window is the same in the
+    flattened signal as in its channel (the guard is wider than a window),
+    so "xla" equals :func:`sinc_banded_device` channel by channel.  Returns
+    (C, T, max_n) or (T, max_n)."""
     x = sig if sig.dim() == 2 else sig[None]
     C = x.shape[0]
     flat = _flatten_takes(
         x, speeds.expand(C, -1), n.expand(C, -1), base_int.expand(C, -1),
         base_frac.expand(C, -1), max_n, nt, drift)
-    out = _sinc_segments_backend(flat, max_n, nt, drift).reshape(C, -1, max_n)
+    out = _sinc_segments_backend(flat, max_n, nt, drift, backend).reshape(C, -1, max_n)
     return out if sig.dim() == 2 else out[0]
 
 
@@ -875,8 +836,6 @@ def restore_file_streamed(audio_path, f0_hz=None, tolerance_st: float = 1.0,
     their read / device / write parts) plus ``n``/``sr``/``n_out``.
     Returns the output path.
     """
-    from pyaudiorestoration_tpu.utils import audio_io
-
     if timings is None:
         timings = {}
     dev = resolve_device(device)
@@ -1038,8 +997,6 @@ def restore_file_fast(audio_path, f0_hz=None, tolerance_st: float = 1.0,
     (header frames x channels x 4 bytes) exceeds ``stream_threshold_bytes``.
     Takes past the int32 sample cap always take it.
     """
-    from pyaudiorestoration_tpu.utils import audio_io, streaming
-
     dev = resolve_device(device)
     # int32 sample counts cap the in-memory path at 2**31 samples
     # (compact_padded_device); longer takes stream through the int64 host plan

@@ -16,6 +16,7 @@ from pyaudiorestoration_tpu.utils import audio_io
 from pyaudiorestoration_tpu_torch import cli
 from pyaudiorestoration_tpu_torch.pipelines import respeeder as pt
 from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+from pyaudiorestoration_tpu_torch.utils import audio_io as port_io
 from pyaudiorestoration_tpu_torch.utils import project
 from tests.test_respeeder import make_wow_tone, tone_stability
 
@@ -140,7 +141,7 @@ def _run_cli(argv, capsys):
     try:
         rc = cli.main(argv)
     finally:
-        audio_io.set_output_format("wav")
+        port_io.set_output_format("wav")
     assert rc == 0
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])["outputs"]
 

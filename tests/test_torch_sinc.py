@@ -293,3 +293,203 @@ def test_gather_windows_zero_outside_signal():
     sig = torch.arange(1, 11, dtype=torch.float32)
     buf = kb.gather_windows(sig, torch.tensor([0, 8], dtype=torch.int32), 6, 2)
     assert buf.tolist() == [[0, 0, 1, 2, 3, 4], [7, 8, 9, 10, 0, 0]]
+
+
+# ---------------------------------------------------------------- plan entries
+
+def _plan_case(case):
+    """Numpy inputs of the plan entries, (sig_flat, base_int, s_lo, s_hi, n,
+    base_frac, max_n, nt, drift), and the (T+1,) speed curve where the rows
+    follow one (else None)."""
+    if case in ("wow", "n0"):
+        sig, speeds, plan, drift = _wow_case(seconds=1)
+        n = plan["n"].copy()
+        if case == "n0":
+            n[[0, 5, len(n) - 1]] = 0  # rows with no output
+        return (sig, plan["base_int"], speeds[:-1], speeds[1:], n, plan["base_frac"],
+                int(plan["max_n"]), 16, drift), speeds
+    if case == "unaligned":
+        sig, speeds, plan, drift = _unaligned_case()
+        return (sig, plan["base_int"], speeds[:-1], speeds[1:], plan["n"],
+                plan["base_frac"], int(plan["max_n"]), 8, drift), speeds
+    # rows of two signals flattened with zero guards (respeeder_device's
+    # _flatten_takes): the channels of one take, or a batch of two takes
+    sig, speeds, plan, drift = _wow_case(seconds=1, seed=11)
+    if case == "stereo":
+        xs, plans, curves = [sig, -0.5 * sig[::-1]], [plan, plan], [speeds, speeds]
+    else:
+        sig2, speeds2, plan2, drift2 = _wow_case(seconds=1, depth=0.02, seed=12)
+        xs, plans, curves = [sig, sig2], [plan, plan2], [speeds, speeds2]
+        drift = max(drift, drift2)
+    max_n, nt = max(int(p["max_n"]) for p in plans), 16
+    flat = rt._flatten_takes(
+        torch.from_numpy(np.stack(xs).astype(np.float32)),
+        torch.from_numpy(np.stack(curves)),
+        *(torch.from_numpy(np.stack([p[k] for p in plans]))
+          for k in ("n", "base_int", "base_frac")), max_n, nt, drift)
+    sig_flat, s_lo, s_hi, n, bi, bf = (t.numpy() for t in flat)
+    return (sig_flat, bi, s_lo, s_hi, n, bf, max_n, nt, drift), None
+
+
+def _run_plan_entry(entry, args):
+    sig, bi, s_lo, s_hi, n, bf, max_n, nt, drift = args
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (sig, bi, s_lo, s_hi, n, bf)]
+    if entry == "K1":
+        return kb.sinc_banded_plan(*t, max_n, nt, drift).numpy()
+    U = nt + drift
+    buf = kb.gather_windows(t[0], t[1], max_n + 2 * U, U)
+    return kb.sinc_banded_gathered_plan(buf, *t[2:], max_n, nt, drift).numpy()
+
+
+@pytest.mark.parametrize("entry", ["K1", "K2"])
+@pytest.mark.parametrize("case", ["wow", "unaligned", "stereo", "batch", "n0"])
+def test_plan_entries_match_jax_pallas(case, entry):
+    """The plan entries (their plain versions on the CPU) against JAX's
+    sinc_banded_pallas_dma_segments and, where the rows follow one speed
+    curve, sinc_banded_pallas, both in interpret mode, within 3e-5."""
+    args, speeds = _plan_case(case)
+    sig, bi, s_lo, s_hi, n, bf, max_n, nt, drift = args
+    got = _run_plan_entry(entry, args)
+    assert got.shape == (len(n), max_n)
+    assert np.all(got[np.arange(max_n)[None, :] >= n[:, None]] == 0)
+    ref = np.asarray(sinc_pallas.sinc_banded_pallas_dma_segments(
+        *(jnp.asarray(a) for a in (sig, s_lo, s_hi, n, bi, bf)), max_n, nt, drift,
+        tile=8, interpret=True))
+    np.testing.assert_allclose(got, ref, atol=3e-5, rtol=0)
+    if speeds is not None:
+        ref = np.asarray(sinc_pallas.sinc_banded_pallas(
+            *(jnp.asarray(a) for a in (sig, speeds, n, bi, bf)), max_n, nt, drift,
+            tile=8, interpret=True))
+        np.testing.assert_allclose(got, ref, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("entry", ["K1", "K2"])
+def test_plan_wrappers_use_plain_version_on_cpu_and_check_inputs(entry):
+    args, _ = _plan_case("wow")
+    sig, bi, s_lo, s_hi, n, bf, max_n, nt, drift = args
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (sig, bi, s_lo, s_hi, n, bf)]
+    U = nt + drift
+    if entry == "K1":
+        fn, plain, head = kb.sinc_banded_plan, kb.sinc_banded_plan_plain, t[:2]
+    else:
+        fn, plain = kb.sinc_banded_gathered_plan, kb.sinc_banded_gathered_plan_plain
+        head = [kb.gather_windows(t[0], t[1], max_n + 2 * U, U)]
+    plan = t[2:]
+    before = fn.launches
+    out = fn(*head, *plan, max_n, nt, drift)
+    assert fn.launches == before  # no kernel launch on the CPU
+    assert torch.equal(out, plain(*head, *plan, max_n, nt, drift))
+    bad = [plan[0].double(), plan[1][:-1], plan[2].long(), plan[3][:, None]]
+    for i, b in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn(*head, *plan[:i], b, *plan[i + 1:], max_n, nt, drift)
+    with pytest.raises(ValueError):
+        fn(head[0].double(), *head[1:], *plan, max_n, nt, drift)
+    with pytest.raises(ValueError):
+        fn(*head, *plan, max_n, 0, drift)
+    with pytest.raises(ValueError):
+        fn(*head, *plan, -1, nt, drift)
+    with pytest.raises(ValueError):
+        fn(head[0].to("meta"), *head[1:], *plan, max_n, nt, drift)
+    if entry == "K1":
+        with pytest.raises(ValueError):
+            fn(head[0], head[1].long(), *plan, max_n, nt, drift)
+    else:
+        with pytest.raises(ValueError):  # the buffer's width follows nt + drift
+            fn(*head, *plan, max_n, nt, drift + 1)
+
+
+# ------------------------------------------- the CUDA tap loop's float32 model
+
+_J = 7  # csrc/sinc_banded.cu: kJ, the taps of a block
+
+
+def _recip_model(e):
+    """rcp.approx.ftz.f32, modelled as the rounded reciprocal 2 ulp off
+    (worse than the instruction's 1 ulp), then one Newton step."""
+    e = np.asarray(e, np.float32)
+    with np.errstate(divide="ignore"):
+        r = (np.float32(1) / e * np.float32(1 + 2.0 ** -22)).astype(np.float32)
+    return (r + r * (np.float32(1) - e * r)).astype(np.float32)
+
+
+def _sincospi(x):
+    x = np.asarray(x, np.float64)
+    return np.sin(np.pi * x).astype(np.float32), np.cos(np.pi * x).astype(np.float32)
+
+
+def _tap_weights_model(shift, fc, nt):
+    """float32 numpy model of the CUDA tap weights: (lanes, 2 nt), tap j at
+    column j + nt.  Exact seeds sin/cos(pi x_0) at the centre tap and
+    sin/cos(i pi fc) for the steps (sincospif); taps j = 1 .. nt-1 and
+    -1 .. -(nt-1) in blocks of 7 from an anchor rotated once a block, tap i
+    of a block by angle addition; the 7 reciprocals of a block from one
+    approximate reciprocal of their product plus one Newton step and the
+    prefix products; the rest of a side tap by tap.  fc = 1 takes
+    sin(pi (j - shift)) = (-1)^j sin(pi x_0).  No series near 0: the centre
+    tap takes the exact seed, and |j - shift| >= 0.5 elsewhere."""
+    f32 = np.float32
+    W = np.zeros((len(shift), 2 * nt), f32)
+    x0 = (-shift * fc).astype(f32)
+    s0, c0 = _sincospi(x0)
+    with np.errstate(invalid="ignore"):
+        W[:, nt] = np.where(x0 == 0, fc, s0 * fc * _recip_model(f32(np.pi) * x0))
+    sf, cf = _sincospi(fc)
+    cr, sr = [np.ones_like(cf), cf], [np.zeros_like(sf), sf]
+    for _ in range(2, _J + 1):
+        cr.append((cr[-1] * cf - sr[-1] * sf).astype(f32))
+        sr.append((sr[-1] * cf + cr[-2] * sf).astype(f32))
+    for d in (1, -1):
+        sa = (s0 * cr[1] + d * c0 * sr[1]).astype(f32)
+        ca = (c0 * cr[1] - d * s0 * sr[1]).astype(f32)
+        j = d
+        for t0 in range(0, nt - 1, _J):
+            n_b = min(_J, nt - 1 - t0)
+            e = [(f32(j) - shift + f32(d * i)).astype(f32) for i in range(n_b)]
+            if n_b == _J:
+                p = [e[0]]
+                for i in range(1, _J):
+                    p.append((p[-1] * e[i]).astype(f32))
+                q, r = _recip_model(p[-1]), [None] * _J
+                for i in range(_J - 1, 0, -1):
+                    r[i] = (q * p[i - 1]).astype(f32)
+                    q = (q * e[i]).astype(f32)
+                r[0] = q
+            else:
+                r = [_recip_model(x) for x in e]
+            for i in range(n_b):
+                jj = j + d * i
+                hann = f32((0.5 - 0.5 * np.cos(np.pi * (jj + nt) / nt)) / np.pi)
+                s = sa if (i == 0 or n_b < _J) else (sa * cr[i] + ca * f32(d) * sr[i])
+                u = (hann * r[i]).astype(f32)
+                W[:, jj + nt] = np.where(fc == 1, s0 * f32((-1) ** jj) * u, s * u)
+                if n_b < _J:
+                    sa, ca = ((sa * cr[1] + ca * f32(d) * sr[1]).astype(f32),
+                              (ca * cr[1] - sa * f32(d) * sr[1]).astype(f32))
+            if n_b == _J:
+                sa, ca = ((sa * cr[_J] + ca * f32(d) * sr[_J]).astype(f32),
+                          (ca * cr[_J] - sa * f32(d) * sr[_J]).astype(f32))
+            j += d * n_b
+    return W
+
+
+@pytest.mark.parametrize("drift,max_n", [(16, 519), (192, 512)])
+@pytest.mark.parametrize("fc_case", ["one", "floor", "mixed"])
+def test_tap_weight_scheme_float32_model(fc_case, drift, max_n):
+    """The CUDA tap loop's weight scheme in float32 against float64
+    sinc * fc * hann, at the cutoffs the drift bounds allow (fc >= 1 / (1 +
+    (drift - 2) / max_n)) and at shifts 0, +-0.5 and +-tiny.  Max error
+    2.4e-7 over these cases (nt 50 and 16)."""
+    rng = np.random.default_rng(drift)
+    lanes = 2000
+    shift = rng.uniform(-0.5, 0.5, lanes).astype(np.float32)
+    shift[:5] = [0.0, 0.5, -0.5, 1e-7, -3e-8]
+    fc = {"one": np.ones(lanes), "floor": np.full(lanes, 1 / (1 + (drift - 2) / max_n)),
+          "mixed": np.minimum(1 + 0.02 * rng.standard_normal(lanes), 1.0)}[fc_case]
+    fc = fc.astype(np.float32)
+    for nt in (50, 16):
+        j = np.arange(-nt, nt)[None, :]
+        s, f = shift.astype(np.float64)[:, None], fc.astype(np.float64)[:, None]
+        truth = np.sinc(f * (j - s)) * f * (0.5 - 0.5 * np.cos(np.pi * (j + nt) / nt))
+        err = np.abs(_tap_weights_model(shift, fc, nt) - truth).max()
+        assert err < 5e-7, (nt, err)

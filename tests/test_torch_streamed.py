@@ -15,6 +15,7 @@ import torch
 from pyaudiorestoration_tpu.pipelines import respeeder_device as rj
 from pyaudiorestoration_tpu.utils import audio_io
 from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+from pyaudiorestoration_tpu_torch.utils import audio_io as port_io
 
 torch.set_num_threads(2)
 
@@ -128,8 +129,9 @@ class _Boom(Exception):
 
 
 def _crash_on_write(monkeypatch):
-    monkeypatch.setattr(audio_io.StreamWriter, "write",
-                        lambda self, block: (_ for _ in ()).throw(_Boom()))
+    for io in (audio_io, port_io):  # the JAX package's writer and the port's
+        monkeypatch.setattr(io.StreamWriter, "write",
+                            lambda self, block: (_ for _ in ()).throw(_Boom()))
 
 
 def test_checkpoint_crash_and_resume(tmp_path, monkeypatch):
