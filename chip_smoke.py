@@ -33,12 +33,22 @@ zeropad 2, sinc quality 50):
        shape; the card against the CPU path on a small take
   12   the other trackers through the CLI on a 10 s 44.1 kHz take, and the
        float64 device ``sosfiltfilt`` against scipy
+  13   ``heal --project`` (fft 512/16) on the 30 s take with 8 dropouts, cold
+       and warm; ``--stream`` against in memory; the card against the CPU
+  14   ``dropouts-batch`` Heuristic at its defaults on the 30 s take with 6
+       smooth dips, with its wall split, and ``--stream``; MaxMono and
+       ``--stream``
+  15   ``tapesync`` at its defaults on a 60 s 44.1 kHz stereo pair (the source
+       5 % fast and 60 ms late): the ratio, the batched alignment, K1's
+       launches, the aligned output; K1's grid entry at ``run``'s shape
 
-Phases print on their own lines; the line before the last is a JSON object
-with each kernel's launches on the main paths, its error against the plain
-version, its time, the plain version's, its bound and share of it; the last
-line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Any failure raises and exits non-zero with no result line.  Imports no JAX.
+Phases print on their own lines (13-15 beside the card's name and power
+limit); the line before the last is a JSON object with each kernel's
+launches on the main paths, its error against the plain version, its time,
+the plain version's, its bound and share of it, and the walls of phases
+13-15; the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
+..., "count": ...}}``.  Any failure raises and exits non-zero with no result
+line.  Imports no JAX.
 """
 
 import json
@@ -497,7 +507,6 @@ def portable_phase(take, sig, dev):
     """Phase 11: ``respeed --save-project`` and the ``.spd`` replay at the CLI
     defaults on the 30 s take; K1 at ``sinc_resample``'s shape; the card
     against the CPU path.  Returns (K1 launches of the two runs, K1 check)."""
-    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
     from pyaudiorestoration_tpu_torch.ops import resampling as rs
     from pyaudiorestoration_tpu_torch.pipelines import respeeder as rp
     from pyaudiorestoration_tpu_torch.utils import project
@@ -529,28 +538,8 @@ def portable_phase(take, sig, dev):
         curve = rp.get_speed_curve(proj.marker_list("lines"), [], SR, proj.hop, n / SR)
 
     # K1 on the banded branch's own inputs, one launch per channel
-    pos = rs.speed_to_pos(curve[:, 0] * SR, curve[:, 1], n)
-    anchors, rel, fc, drift = rs.banded_layout(pos, rs._positions_to_device_args(pos)[2])
-    anchors, rel, fc = (torch.as_tensor(v, device=dev) for v in (anchors, rel, fc))
-    lanes = torch.ones(rel.shape, dtype=torch.bool, device=dev)
-
-    def run(fn):
-        return [fn(ch, anchors, fc, rel, lanes, QUALITY, drift) for ch in sig]
-
-    err = max(float((g - r).abs().max())
-              for g, r in zip(run(kb.sinc_banded), run(kb.sinc_banded_plain)))
-    kernel_ms = cuda_ms(lambda: run(kb.sinc_banded), 10, inner=10)
-    plain_ms = cuda_ms(lambda: run(kb.sinc_banded_plain), 3)
-    taps = len(sig) * rel.numel() * 2 * QUALITY  # every lane is valid here
-    nbytes = len(sig) * (sig[0].numel() * 4 + anchors.numel() * 4 + rel.numel() * 13)
-    bound_ms, bound_by = bound(taps, nbytes)
-    print(f"K1 grid entry vs plain at sinc_resample's shape: {len(sig)} x "
-          f"{tuple(rel.shape)}, nt {QUALITY}, drift {drift}, max|d| {err:.3e} "
-          f"(tol {TOL}); kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms; "
-          f"{taps / 1e9:.4f} G taps, bound {bound_ms:.4f} ms ({bound_by}), share "
-          f"{bound_ms / kernel_ms:.3f}")
-    if not err <= TOL:
-        raise RuntimeError(f"K1 disagrees with its plain version at sinc_resample: {err}")
+    k1 = k1_grid_check(sig, rs.speed_to_pos(curve[:, 0] * SR, curve[:, 1], n),
+                       "sinc_resample (portable respeed)", all_lanes=True)
 
     small = wow_take(22050, 2.5, seed=2)
     with tempfile.TemporaryDirectory() as tmp:
@@ -562,10 +551,47 @@ def portable_phase(take, sig, dev):
                 src, fft_size=2048, fft_overlap=8, zeropad=2, sinc_quality=30,
                 device=d)[0])[1][:, 0])
     compare_compacted(*outs, "portable respeed cuda vs cpu (2.5 s, 22.05 kHz)")
-    return counts, {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "share_of_bound": bound_ms / kernel_ms, "library_ms": None,
-                    "taps": taps, "rows": int(rel.shape[0]), "drift": drift}
+    return counts, k1
+
+
+def k1_grid_check(sig, pos, what, nt=QUALITY, all_lanes=False):
+    """K1's grid entry on ``sinc_resample``'s banded inputs for the float64
+    positions ``pos`` and ``nt`` taps a side, one launch per row of the
+    (C, n) signal ``sig``, against its plain version; its time, bound and
+    share.  Taps are the real outputs' (every lane's, padding included,
+    with ``all_lanes``)."""
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.ops import resampling as rs
+
+    dev = sig.device
+    layout = rs.banded_layout(pos, rs._positions_to_device_args(pos)[2])
+    if layout is None:
+        raise RuntimeError(f"{what}: the positions leave sinc_resample's banded branch")
+    anchors, rel, fc, drift = layout
+    anchors, rel, fc = (torch.as_tensor(v, device=dev) for v in (anchors, rel, fc))
+    lanes = torch.ones(rel.shape, dtype=torch.bool, device=dev)
+
+    def run(fn):
+        return [fn(ch, anchors, fc, rel, lanes, nt, drift) for ch in sig]
+
+    err = max(float((g - r).abs().max())
+              for g, r in zip(run(kb.sinc_banded), run(kb.sinc_banded_plain)))
+    kernel_ms = cuda_ms(lambda: run(kb.sinc_banded), 10, inner=10)
+    plain_ms = cuda_ms(lambda: run(kb.sinc_banded_plain), 3)
+    taps = len(sig) * (rel.numel() if all_lanes else len(pos)) * 2 * nt
+    nbytes = len(sig) * (sig[0].numel() * 4 + anchors.numel() * 4 + rel.numel() * 13)
+    bound_ms, bound_by = bound(taps, nbytes)
+    print(f"K1 grid entry vs plain at {what}: {len(sig)} x {tuple(rel.shape)}, nt "
+          f"{nt}, drift {drift}, max|d| {err:.3e} (tol {TOL}); kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms; {taps / 1e9:.4f} G taps, "
+          f"{nbytes / 1e6:.1f} MB, bound {bound_ms:.4f} ms ({bound_by}), share "
+          f"{bound_ms / kernel_ms:.3f}")
+    if not err <= TOL:
+        raise RuntimeError(f"K1 disagrees with its plain version at {what}: {err}")
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / kernel_ms, "library_ms": None, "taps": taps,
+            "bytes": nbytes, "rows": int(rel.shape[0]), "nt": nt, "drift": drift}
 
 
 def modes_phase(dev):
@@ -612,6 +638,316 @@ def modes_phase(dev):
         raise RuntimeError(f"device sosfiltfilt at {worst:.1f} dB against scipy")
 
 
+N_DROPS, DROP_S = 8, 0.004  # heal: 8 dropouts, x0.05 over 4 ms each
+N_DIPS, DIP_S = 6, 0.030    # dropouts-batch: smooth 30 ms dips
+TS_SR, TS_SECONDS, TS_DELAY = 44100, 60.0, 0.060  # tapesync's pair
+
+
+def walls(fn, reps):
+    """``fn()`` once cold and ``reps`` times warm, each ending in a
+    synchronize: (cold s, median warm s, warm runs)."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    return (cold, *wall_s(fn, reps))
+
+
+def run_cli(argv):
+    from pyaudiorestoration_tpu_torch import cli
+
+    rc = cli.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"{argv}: rc {rc}")
+
+
+def dropout_take(sr, seconds, n_drops, seed=0):
+    """wow_take with ``n_drops`` dropouts (x0.05 over DROP_S) spread over the
+    take, and the .drop boxes naming them (1-8 kHz, 1.5 ms either side)."""
+    take = wow_take(sr, seconds, seed)
+    times = np.linspace(0.1 * seconds, 0.9 * seconds, n_drops)
+    for t in times:
+        take[int(t * sr):int(t * sr) + int(DROP_S * sr)] *= 0.05
+    boxes = [((t - 0.0015, 1000.0), (t + DROP_S + 0.0015, 8000.0)) for t in times]
+    return take, times, boxes
+
+
+def save_drop(path, boxes):
+    from pyaudiorestoration_tpu_torch.models import markers as mk
+    from pyaudiorestoration_tpu_torch.utils import project
+
+    project.Project(".drop", {"fft_size": 512, "fft_overlap": 16}, {
+        "dropouts": [mk.DropoutSample(a, b, 0.5) for a, b in boxes]}).save(path)
+
+
+def rms(x, sr, t0, t1):
+    return float(np.sqrt(np.mean(np.square(x[int(t0 * sr):int(t1 * sr)], dtype=np.float64))))
+
+
+def heal_phase(dev, smi):
+    """Phase 13: ``heal --project`` at the CLI defaults (fft 512, overlap 16)
+    on the 30 s take with 8 dropouts, cold and median of 3 warm; the
+    dropouts' level must rise; ``--stream`` against the in-memory file
+    (interior within 1e-4, tests/test_streaming_tools.py:83); the card
+    against the CPU path on a 2.5 s 22.05 kHz take (within 1e-4)."""
+    from pyaudiorestoration_tpu_torch.models import markers as mk
+    from pyaudiorestoration_tpu_torch.pipelines import dropouts
+    from pyaudiorestoration_tpu_torch.utils import audio_io
+
+    take, times, boxes = dropout_take(SR, SECONDS, N_DROPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, drop = os.path.join(tmp, "take.wav"), os.path.join(tmp, "take.drop")
+        wavfile.write(src, SR, take)
+        save_drop(drop, boxes)
+        argv = ["heal", src, "--project", drop, "--device", str(dev)]
+        cold, warm, runs = walls(lambda: run_cli(argv), 3)
+        out = audio_io.read_file(os.path.join(tmp, "take_drops.wav"))[0]
+        t0 = time.perf_counter()
+        run_cli(argv + ["--stream", "--suffix", "_str"])
+        stream_s = time.perf_counter() - t0
+        streamed = audio_io.read_file(os.path.join(tmp, "take_drops_str.wav"))[0]
+    lift = min(rms(out[:, 0], SR, t + 0.0005, t + DROP_S - 0.0005)
+               / rms(take[:, 0], SR, t + 0.0005, t + DROP_S - 0.0005) for t in times)
+    err = float(np.abs(out[512:-512] - streamed[512:-512]).max()) \
+        if out.shape == streamed.shape == take.shape else math.inf
+    print(f"[{smi}] heal --project ({N_DROPS} dropouts, {SECONDS:.0f} s {SR} Hz stereo, "
+          f"fft 512/16): cold {cold:.3f} s, warm {warm:.3f} s (runs "
+          f"{', '.join(f'{r:.3f}' for r in runs)}), {SECONDS / warm:.1f}x realtime; "
+          f"--stream {stream_s:.3f} s, streamed vs in-memory interior max|d| {err:.3e} "
+          f"(tol 1e-4); least level lift in a dropout {lift:.2f}x")
+    if not np.all(np.isfinite(out)) or not lift > 4.0:
+        raise RuntimeError(f"heal: output finite {np.all(np.isfinite(out))}, lift {lift}")
+    if not err <= 1e-4:
+        raise RuntimeError(f"heal --stream disagrees with the in-memory heal: {err}")
+
+    small, _, sboxes = dropout_take(22050, 2.5, 2, seed=6)
+    drops = [mk.DropoutSample(a, b, 0.5) for a, b in sboxes]
+    outs = [dropouts.heal(small, 22050, drops, device=d) for d in (str(dev), "cpu")]
+    err = float(np.abs(outs[0] - outs[1]).max())
+    print(f"heal card vs cpu (2.5 s, 22.05 kHz): max|d| {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise RuntimeError(f"heal on the card disagrees with the CPU path: {err}")
+    return {"cold_s": cold, "warm_s": warm, "stream_s": stream_s}
+
+
+def dips_take(sr, seconds, n_dips, seed=0):
+    """wow_take with ``n_dips`` smooth (hann-shaped, 95 %) dips of DIP_S
+    (tests/test_host_loop_removal.py:119-150's shape); returns the take
+    and the dips' centres."""
+    take = wow_take(sr, seconds, seed)
+    centres = np.linspace(0.1 * seconds, 0.9 * seconds, n_dips)
+    w = int(DIP_S / 2 * sr)
+    for c in centres:
+        c = int(c * sr)
+        take[c - w:c + w] *= (1.0 - 0.95 * np.hanning(2 * w)).astype(np.float32)[:, None]
+    return take, centres
+
+
+def dropouts_batch_phase(dev, smi):
+    """Phase 14: ``dropouts-batch --mode Heuristic`` at the defaults (fft
+    1024/4, 12 bands, 3-12 kHz) on the 30 s take with 6 dips, cold and warm,
+    and its wall split (spectrum, host ``_heuristic_fac``, float64 band
+    cascade); the dips must rise; ``--stream`` against in memory (interior
+    within 1e-5, tests/test_streaming_tools.py:157); ``--mode MaxMono`` in
+    memory against ``--stream`` (within 1e-5)."""
+    from pyaudiorestoration_tpu_torch.pipelines import dropouts
+    from pyaudiorestoration_tpu_torch.utils import audio_io
+
+    take, centres = dips_take(SR, SECONDS, N_DIPS)
+    take[:, 1] += 0.2 * np.sin(2 * np.pi * 5000 * np.arange(len(take)) / SR).astype(
+        np.float32)  # the channels differ, so the max/min folds do
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "dips.wav")
+        wavfile.write(src, SR, take)
+        argv = ["dropouts-batch", src, "--device", str(dev)]
+        split, real = {}, dropouts.process_heuristic
+
+        def spy(*a, **k):  # the entry's own split, of the last warm run
+            return real(*a, timings=split, **k)
+
+        dropouts.process_heuristic = spy
+        try:
+            cold, warm, runs = walls(lambda: run_cli(argv), 2)
+        finally:
+            dropouts.process_heuristic = real
+        out = audio_io.read_file(os.path.join(tmp, "dips_out.wav"))[0]
+        t0 = time.perf_counter()
+        run_cli(argv + ["--stream", "--suffix", "_str"])
+        stream_s = time.perf_counter() - t0
+        streamed = audio_io.read_file(os.path.join(tmp, "dips_str.wav"))[0]
+        h = 4096
+        err = float(np.abs(out[h:-h] - streamed[h:-h]).max()) \
+            if out.shape == streamed.shape == take.shape else math.inf
+        lift = min(rms(out[:, 0], SR, c - 0.003, c + 0.003)
+                   / rms(take[:, 0], SR, c - 0.003, c + 0.003) for c in centres)
+        print(f"[{smi}] dropouts-batch Heuristic ({N_DIPS} dips, {SECONDS:.0f} s {SR} Hz "
+              f"stereo, defaults): cold {cold:.3f} s, warm {warm:.3f} s (runs "
+              f"{', '.join(f'{r:.3f}' for r in runs)}); split: spectrum "
+              f"{split['spectrum_s']:.3f} s, host _heuristic_fac "
+              f"{split['heuristic_fac_s']:.3f} s, float64 cascade {split['cascade_s']:.3f} s; "
+              f"--stream {stream_s:.3f} s, interior max|d| {err:.3e} (tol 1e-5); least "
+              f"lift at a dip centre {lift:.2f}x")
+        if not np.all(np.isfinite(out)) or not lift > 1.5:
+            raise RuntimeError(f"heuristic: output finite {np.all(np.isfinite(out))}, "
+                               f"lift {lift}")
+        if not err <= 1e-5:
+            raise RuntimeError(f"dropouts-batch --stream disagrees with in memory: {err}")
+        res["heuristic"] = {"cold_s": cold, "warm_s": warm, "stream_s": stream_s,
+                            **split}
+
+        mono = ["dropouts-batch", src, "--mode", "MaxMono", "--device", str(dev)]
+        cold, warm, runs = walls(lambda: run_cli(mono), 2)
+        t0 = time.perf_counter()
+        run_cli(mono + ["--stream", "--suffix", "_str"])
+        stream_s = time.perf_counter() - t0
+        errs = []
+        for fold in ("max", "min"):
+            a = audio_io.read_file(os.path.join(tmp, f"dips{fold}.wav"))[0]
+            b = audio_io.read_file(os.path.join(tmp, f"dips{fold}_str.wav"))[0]
+            if a.shape != (len(take), 1) or a.shape != b.shape or not np.all(np.isfinite(a)):
+                raise RuntimeError(f"MaxMono {fold}: shapes {a.shape} / {b.shape}")
+            errs.append(float(np.abs(a - b).max()))
+        print(f"[{smi}] dropouts-batch MaxMono: cold {cold:.3f} s, warm {warm:.3f} s; "
+              f"--stream {stream_s:.3f} s; streamed vs in-memory max|d| max {errs[0]:.3e}, "
+              f"min {errs[1]:.3e} (tol 1e-5)")
+        if not max(errs) <= 1e-5:
+            raise RuntimeError(f"MaxMono --stream disagrees with in memory: {errs}")
+        res["max_mono"] = {"cold_s": cold, "warm_s": warm, "stream_s": stream_s}
+    return res
+
+
+def tapesync_pair(sr, seconds, seed=0):
+    """A stereo reference of band-limited noise (100 Hz - 8 kHz) plus tones,
+    and the source: the reference delayed by TS_DELAY and played 5 % fast
+    (``resample_poly(., 20, 21)``), the shape of the reference tool's
+    rhythm.flac against rhythm+5percent.flac."""
+    from scipy import signal as dsp
+
+    n = int(seconds * sr)
+    rng = np.random.default_rng(seed)
+    sos = dsp.butter(4, [100 / (sr / 2), 8000 / (sr / 2)], btype="band", output="sos")
+    noise = dsp.sosfilt(sos, rng.standard_normal((n, 2)), axis=0)
+    t = np.arange(n) / sr
+    tones = sum(np.sin(2 * np.pi * f * t + p) for f, p in ((220.0, 0.0), (554.4, 1.0),
+                                                            (1318.5, 2.0)))
+    ref = (0.3 * noise / np.abs(noise).max() + 0.1 * tones[:, None]).astype(np.float32)
+    delayed = np.concatenate([np.zeros((int(TS_DELAY * sr), 2), np.float32), ref])
+    return ref, dsp.resample_poly(delayed, 20, 21, axis=0).astype(np.float32)
+
+
+def tapesync_phase(dev, smi):
+    """Phase 15: ``tapesync`` at the defaults (8 windows of 1 s, lower 100 Hz,
+    sinc 50) on the 60 s 44.1 kHz pair, cold and warm: the speed ratio
+    1.05 +- 0.01 (tests/test_pipelines.py:24), the batched ``auto_align``
+    path taken with no per-window fallback, its lags within 0.5 ms of the
+    truth t - (t + TS_DELAY) / 1.05, K1's launches in ``resample_ratio``
+    and in ``run``, the aligned output correlating with the reference above
+    0.8 within 2 samples of lag 0; then K1's grid entry at both of the
+    path's shapes (the stacked windows at nt 8, ``run``'s at nt 50) against
+    its plain version."""
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.ops import correlation, resampling as rs
+    from pyaudiorestoration_tpu_torch.pipelines import tapesynch as ts
+    from pyaudiorestoration_tpu_torch.utils import audio_io
+
+    ref, src_sig = tapesync_pair(TS_SR, TS_SECONDS)
+    seen = {"ratio": [], "batched": 0, "fallback": 0, "k1 resample_ratio": 0, "k1 run": 0,
+            "samples": None}
+    calls = []  # sinc_resample's (C, n) signal, positions and nt in the first run
+    real = {"ratio": ts.estimate_speed_ratio, "batch": correlation.find_delay_batch,
+            "window": ts.correlate_sources, "align": ts.auto_align,
+            "resample_ratio": rs.resample_ratio, "run": rs.run, "sinc": rs.sinc_resample}
+
+    def ratio(*a, **k):
+        seen["ratio"].append(real["ratio"](*a, **k))
+        return seen["ratio"][-1]
+
+    def batch(*a, **k):
+        seen["batched"] += 1
+        return real["batch"](*a, **k)
+
+    def window(*a, **k):
+        seen["fallback"] += 1
+        return real["window"](*a, **k)
+
+    def align(*a, **k):
+        out = real["align"](*a, **k)
+        seen["samples"] = out[0]
+        return out
+
+    def sinc(signal, sample_at, **k):
+        if len(calls) < 2:  # the first run's two calls
+            rows = torch.as_tensor(signal, dtype=torch.float32, device=dev)
+            calls.append((rows.T.clone(memory_format=torch.contiguous_format),
+                          np.array(sample_at, np.float64), k["quality"]))
+        return real["sinc"](signal, sample_at, **k)
+
+    def counted(name, key):
+        def fn(*a, **k):
+            before = launches(kb)[0]
+            out = real[name](*a, **k)
+            seen[key] += launches(kb)[0] - before
+            return out
+        return fn
+
+    ts.estimate_speed_ratio, correlation.find_delay_batch = ratio, batch
+    ts.correlate_sources, ts.auto_align, rs.sinc_resample = window, align, sinc
+    rs.resample_ratio = counted("resample_ratio", "k1 resample_ratio")
+    rs.run = counted("run", "k1 run")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            r, s = os.path.join(tmp, "ref.wav"), os.path.join(tmp, "src.wav")
+            wavfile.write(r, TS_SR, ref)
+            wavfile.write(s, TS_SR, src_sig)
+            argv = ["tapesync", r, s, "--device", str(dev)]
+            run_cli(argv)
+            first = dict(seen)
+            cold, warm, runs = walls(lambda: run_cli(argv), 3)
+            out = audio_io.read_file(os.path.join(tmp, "src_res.wav"))[0]
+    finally:
+        ts.estimate_speed_ratio, correlation.find_delay_batch = real["ratio"], real["batch"]
+        ts.correlate_sources, ts.auto_align = real["window"], real["align"]
+        rs.resample_ratio, rs.run, rs.sinc_resample = (real["resample_ratio"], real["run"],
+                                                       real["sinc"])
+    corrs = []
+    w = TS_SR // 2
+    for frac in (0.25, 0.5, 0.75):
+        mid = int(frac * min(len(out), len(ref)))
+        d, c = correlation.find_delay(ref[mid - w:mid + w, 0], out[mid - w:mid + w, 0],
+                                      window_name="hann", device=dev)
+        corrs.append((float(d), float(c)))
+    lag_err = max(abs(x.d - (x.t - (x.t + TS_DELAY) / 1.05)) for x in first["samples"])
+    n_rr, n_run = first["k1 resample_ratio"], first["k1 run"]
+    print(f"[{smi}] tapesync ({TS_SECONDS:.0f} s {TS_SR} Hz stereo, 5 % fast, "
+          f"{TS_DELAY * 1e3:.0f} ms late; defaults): cold {cold:.3f} s, warm {warm:.3f} s "
+          f"(runs {', '.join(f'{x:.3f}' for x in runs)}); ratio {first['ratio'][0]:.5f}; "
+          f"batched find_delay calls {first['batched']}, per-window fallbacks "
+          f"{first['fallback']}; {len(first['samples'])} lags, worst vs truth "
+          f"{lag_err * 1e3:.4f} ms (tol 0.5 ms); K1 launches: resample_ratio {n_rr}, "
+          f"run {n_run}; output {out.shape}; output vs reference (delay samples, corr) "
+          + ", ".join(f"({d:.3f}, {c:.4f})" for d, c in corrs))
+    if not abs(first["ratio"][0] - 1.05) <= 0.01:
+        raise RuntimeError(f"tapesync ratio estimate {first['ratio']}")
+    if first["batched"] != 1 or first["fallback"] != 0:
+        raise RuntimeError(f"auto_align: {first['batched']} batched calls, "
+                           f"{first['fallback']} per-window fallbacks")
+    if len(first["samples"]) != 8 or not lag_err <= 5e-4:
+        raise RuntimeError(f"auto_align: {len(first['samples'])} lags, worst {lag_err} s "
+                           f"from the truth")
+    if n_rr < 1 or n_run < 1 or not np.all(np.isfinite(out)):
+        raise RuntimeError(f"tapesync: K1 launches {n_rr} / {n_run}, output finite "
+                           f"{np.all(np.isfinite(out))}")
+    if not all(c > 0.8 and abs(d) < 2.0 for d, c in corrs):
+        raise RuntimeError(f"tapesync: output vs reference {corrs}")
+    if [nt for *_, nt in calls] != [8, QUALITY]:
+        raise RuntimeError(f"tapesync: sinc_resample called at nt {[c[2] for c in calls]}")
+    k1 = {name: k1_grid_check(sig, pos, f"tapesync's {name}", nt=nt)
+          for name, (sig, pos, nt) in zip(("resample_ratio", "run"), calls)}
+    return {"cold_s": cold, "warm_s": warm, "ratio": first["ratio"][0],
+            "lag_err_s": lag_err, "k1 resample_ratio": n_rr, "k1 run": n_run}, k1
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -623,6 +959,7 @@ def main():
     from pyaudiorestoration_tpu_torch.utils.convert import plan_to_torch
     from pyaudiorestoration_tpu_torch.utils.device import resolve_device
 
+    started = time.perf_counter()
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -741,6 +1078,12 @@ def main():
     k1_portable, k1_resample = portable_phase(take, sig, dev)
     modes_phase(dev)
 
+    # 13-15. heal, dropouts-batch and tapesync through the CLI
+    heal = heal_phase(dev, smi)
+    batch = dropouts_batch_phase(dev, smi)
+    tape, k1_tapesync = tapesync_phase(dev, smi)
+
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - started:.1f} s")
     common = {"route": "cuda", "source": "pyaudiorestoration_tpu_torch/csrc/sinc_banded.cu"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
@@ -753,15 +1096,21 @@ def main():
                               "restore_fused_takes x8": k1_batch,
                               "respeed-batch": k1_cli,
                               "respeed (streamed, auto route)": k1_stream,
-                              **k1_portable},
+                              **k1_portable,
+                              "tapesync": tape["k1 resample_ratio"] + tape["k1 run"],
+                              "tapesync (resample_ratio)": tape["k1 resample_ratio"],
+                              "tapesync (run)": tape["k1 run"]},
          **{k: v for k, v in k1.items() if k not in keys},
-         "grid_entry_at_sinc_resample": k1_resample},
+         "grid_entry_at_sinc_resample": k1_resample,
+         "grid_entry_at_tapesync_resample_ratio": k1_tapesync["resample_ratio"],
+         "grid_entry_at_tapesync_run": k1_tapesync["run"]},
         {"name": "sinc_banded_gathered", **common,
          "replaces": "pyaudiorestoration_tpu/kernels/sinc_pallas.py:350",
          "entry": "sinc_banded_gathered_plan_f32", "launches": k2_fused,
          **{k: k2[k] for k in keys},
          "launches_by_path": {"restore_fused_device xla": k2_fused},
-         **{k: v for k, v in k2.items() if k not in keys}}]}))
+         **{k: v for k, v in k2.items() if k not in keys}}],
+        "walls_s": {"heal": heal, "dropouts-batch": batch, "tapesync": tape}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

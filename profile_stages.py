@@ -1,7 +1,8 @@
-"""Stage breakdown and device profile of the port's wow/flutter paths on one
-CUDA card, on chip_smoke's 30 s, 192 kHz stereo take.
+"""Stage breakdown and device profile of the port's paths on one CUDA card,
+on chip_smoke's synthesized inputs.
 
-    python3 profile_stages.py [--path fast|fused|batch|stream|portable] [--runs 5]
+    python3 profile_stages.py [--path fast|fused|batch|stream|portable|heal|heuristic|tapesync]
+                              [--runs 5]
     python3 profile_stages.py --sass
 
 ``fast``: ``restore_file_fast`` (``respeed --fast``), file to file.
@@ -11,6 +12,12 @@ CUDA card, on chip_smoke's 30 s, 192 kHz stereo take.
 12-minute take (1.1 GB decoded), file to file, split into its passes.
 ``portable``: ``respeeder.restore_file`` (``respeed`` at the CLI defaults:
 Peak, fft 1024/8/4, sinc 50), file to file.
+``heal``: ``dropouts.heal_file`` at the CLI defaults (fft 512/16) on the
+30 s take with chip_smoke's 8 dropouts, file to file.
+``heuristic``: ``dropouts.process_heuristic`` (``dropouts-batch`` at its
+defaults: fft 1024/4, 12 bands, 3-12 kHz) on the 30 s take with 6 dips.
+``tapesync``: ``tapesynch.align_files`` at the defaults on chip_smoke's
+60 s 44.1 kHz pair (the source 5 % fast and 60 ms late).
 The fused paths run K1 (backend "pallas"), as the card's "auto" does; the
 streamed and portable paths run K1 through their own resamplers.  The sinc
 stage of every path includes its grids: K1's plan entry builds them.
@@ -24,6 +31,7 @@ its idle share of the wall, and the device time by kernel.  Imports no JAX.
 """
 
 import argparse
+import inspect
 import os
 import re
 import shutil
@@ -37,8 +45,10 @@ import torch
 from scipy.io import wavfile
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (DRIFT, FFT, LONG_MINUTES, MAX_N, OVERLAP, QUALITY, SECONDS,
-                        SR, ZEROPAD, long_wow_chunks, wow_take, write_float_wav)
+from chip_smoke import (DRIFT, FFT, LONG_MINUTES, MAX_N, N_DIPS, N_DROPS, OVERLAP,
+                        QUALITY, SECONDS, SR, TS_SECONDS, TS_SR, ZEROPAD, dips_take,
+                        dropout_take, long_wow_chunks, save_drop, tapesync_pair,
+                        wow_take, write_float_wav)
 
 HOP = FFT // OVERLAP
 
@@ -166,6 +176,74 @@ def portable_stages(src, rp, rs, audio_io, dev):
     return s.done()
 
 
+def heal_stages(src, drop, audio_io, dev):
+    """One run of ``heal_file``'s in-memory path (``heal --project``), split
+    into stages."""
+    from pyaudiorestoration_tpu_torch.ops import fourier
+    from pyaudiorestoration_tpu_torch.pipelines import dropouts
+    from pyaudiorestoration_tpu_torch.utils import project
+
+    s = Stages()
+    signal, sr, nch = audio_io.read_file(src)
+    proj = project.Project.load(drop)
+    fft, hop, n = proj.fft_size, proj.hop, len(signal)
+    boxes = dropouts._boxes_array(proj.marker_list("dropouts"), sr, hop, fft)
+    s.mark("read")
+    x = torch.as_tensor(np.ascontiguousarray(fourier.fix_length(signal, n + fft // 2,
+                                                                axis=0).T), device=dev)
+    s.mark("upload")
+    spec = fourier.stft(x, n_fft=fft, step=hop)
+    s.mark("STFT")
+    healed = dropouts._heal_spectrum(spec, boxes)
+    s.mark("mask")
+    y = fourier.istft(healed, length=n, hop_length=hop)
+    s.mark("iSTFT")
+    host = y.cpu().numpy().T
+    s.mark("download")
+    audio_io.write_file(src, host, sr, nch, suffix="_drops")
+    s.mark("write")
+    return s.done()
+
+
+HEURISTIC_STAGES = ("read_s", "spectrum_s", "heuristic_fac_s", "cascade_s", "write_s")
+
+
+def heuristic_stages(src, dev):
+    """One run of ``process_heuristic`` at the defaults; its own timings
+    (the cascade includes the download), in ms."""
+    from pyaudiorestoration_tpu_torch.pipelines import dropouts
+
+    timings = {}
+    t0 = time.perf_counter()
+    dropouts.process_heuristic(src, stream=False, timings=timings, device=dev)
+    out = {k[:-2]: timings[k] * 1e3 for k in HEURISTIC_STAGES}
+    out["total"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def tapesync_stages(ref, src, audio_io, dev):
+    """One run of ``align_files`` at its defaults, split into stages (the
+    resample stage uploads, runs K1 once a channel and downloads)."""
+    from pyaudiorestoration_tpu_torch.ops import resampling as rs
+    from pyaudiorestoration_tpu_torch.pipelines import tapesynch as ts
+
+    defaults = {k: p.default for k, p in inspect.signature(ts.align_files).parameters.items()}
+    s = Stages()
+    ref_sig, sr, _ = audio_io.read_file(ref)
+    src_sig, _, _ = audio_io.read_file(src)
+    s.mark("read")
+    _, curve = ts.auto_align(ref_sig, src_sig, sr, **{k: defaults[k] for k in (
+        "num_windows", "window_s", "lower", "upper", "smoothing")}, device=dev)
+    s.mark("auto_align")  # ratio, windows, K1 x8, band-pass, find_delay, curve
+    pos = rs.lag_to_pos(curve[:, 0] * sr, curve[:, 1] * sr, len(src_sig))
+    s.mark("positions")
+    out = rs.sinc_resample(src_sig, pos, quality=defaults["sinc_quality"], device=dev)
+    s.mark("resample")
+    audio_io.write_file(src, out, sr, suffix="_res")
+    s.mark("write")
+    return s.done()
+
+
 def device_profile(fn):
     """One profiled run of ``fn``: wall, device busy time and idle share, and
     the device time by kernel."""
@@ -233,8 +311,8 @@ def sass_report(so):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=["fast", "fused", "batch", "stream", "portable"],
-                    default="fast")
+    ap.add_argument("--path", choices=["fast", "fused", "batch", "stream", "portable",
+                                       "heal", "heuristic", "tapesync"], default="fast")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--sass", action="store_true",
                     help="count the tap loops' instructions in the built kernels")
@@ -282,6 +360,44 @@ def main():
                 rt.restore_file_streamed(src, fft_size=FFT, fft_overlap=OVERLAP,
                                          zeropad=ZEROPAD, sinc_quality=QUALITY,
                                          resume=False, device=dev)
+        elif args.path == "heal":
+            src, drop = os.path.join(tmp, "take.wav"), os.path.join(tmp, "take.drop")
+            take, _, boxes = dropout_take(SR, SECONDS, N_DROPS)
+            wavfile.write(src, SR, take)
+            save_drop(drop, boxes)
+
+            def stages():
+                return heal_stages(src, drop, audio_io, dev)
+
+            def entry():
+                from pyaudiorestoration_tpu_torch.pipelines import dropouts
+                from pyaudiorestoration_tpu_torch.utils import project
+
+                dropouts.heal_file(src, project.Project.load(drop).marker_list("dropouts"),
+                                   stream=False, device=dev)
+        elif args.path == "heuristic":
+            src = os.path.join(tmp, "dips.wav")
+            wavfile.write(src, SR, dips_take(SR, SECONDS, N_DIPS)[0])
+
+            def stages():
+                return heuristic_stages(src, dev)
+
+            def entry():
+                from pyaudiorestoration_tpu_torch.pipelines import dropouts
+
+                dropouts.process_heuristic(src, stream=False, device=dev)
+        elif args.path == "tapesync":
+            ref, src = os.path.join(tmp, "ref.wav"), os.path.join(tmp, "src.wav")
+            for path, x in zip((ref, src), tapesync_pair(TS_SR, TS_SECONDS)):
+                wavfile.write(path, TS_SR, x)
+
+            def stages():
+                return tapesync_stages(ref, src, audio_io, dev)
+
+            def entry():
+                from pyaudiorestoration_tpu_torch.pipelines import tapesynch
+
+                tapesynch.align_files(ref, src, device=dev)
         elif args.path == "portable":
             src = os.path.join(tmp, "take.wav")
             wavfile.write(src, SR, take)

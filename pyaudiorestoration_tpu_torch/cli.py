@@ -2,6 +2,9 @@
 
     python -m pyaudiorestoration_tpu_torch respeed <audio|project.spd> [...] [--device cuda]
     python -m pyaudiorestoration_tpu_torch respeed-batch <audio>... [--device cuda]
+    python -m pyaudiorestoration_tpu_torch tapesync <ref> <src> | <x.tapesync> [...]
+    python -m pyaudiorestoration_tpu_torch heal <audio> --project x.drop | --detect ...
+    python -m pyaudiorestoration_tpu_torch dropouts-batch <audio>... [--mode MaxMono]
 
 ``respeed`` has every form of ``pyaudiorestoration_tpu``'s subcommand, with
 its flags and defaults plus ``--device``: the portable trackers (``--mode``,
@@ -9,7 +12,10 @@ its flags and defaults plus ``--device``: the portable trackers (``--mode``,
 ``.spd`` project replay, the device pipeline (``--fast``) and the streamed
 two-pass tier (``--stream``, or automatically for takes over 1 GiB
 decoded).  ``respeed-batch --tier fused`` restores independent takes on one
-card; ``--tier fixed`` exits with a "not ported yet" error.  The global
+card; ``--tier fixed`` exits with a "not ported yet" error.  ``tapesync``
+(``--compare`` is not ported yet), ``heal`` and ``dropouts-batch`` take the
+JAX package's flags and defaults (its cli.py:93-137) plus ``--device``; the
+spectral tools stream past 1 GiB decoded or with ``--stream``.  The global
 ``--flac-out [BITS]`` / ``--flac-fast`` write FLAC instead of float WAV.
 """
 
@@ -18,6 +24,16 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _add_fft_args(p, fft_size=1024, overlap=4, zeropad=1):
+    p.add_argument("--fft-size", type=int, default=fft_size)
+    p.add_argument("--fft-overlap", type=int, default=overlap)
+    p.add_argument("--zeropad", type=int, default=zeropad)
+
+
+def _add_device_arg(p):
+    p.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
 
 
 def build_parser():
@@ -39,9 +55,7 @@ def build_parser():
                              "Zero-Crossing", "Freehand Draw", "Correlation"])
     sp.add_argument("--trail", type=float, nargs="+", default=None,
                     metavar="T F", help="trail points t0 f0 t1 f1 ...")
-    sp.add_argument("--fft-size", type=int, default=1024)
-    sp.add_argument("--fft-overlap", type=int, default=8)
-    sp.add_argument("--zeropad", type=int, default=4)
+    _add_fft_args(sp, 1024, 8, 4)
     sp.add_argument("--tolerance", type=float, default=1.0)
     sp.add_argument("--adaptation", default="None",
                     choices=["None", "Constant", "Linear", "Average"],
@@ -59,8 +73,7 @@ def build_parser():
                     help="target frequency for --fast tracking")
     sp.add_argument("--save-project", action="store_true",
                     help="write the traced markers to <audio>.spd (GUI Save parity)")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device: cuda (default) or cpu")
+    _add_device_arg(sp)
 
     sp = sub.add_parser("respeed-batch",
                         help="wow/flutter fix of a batch of independent takes")
@@ -75,8 +88,54 @@ def build_parser():
                          "fixed = the fixed-length linear tier (not ported yet)")
     sp.add_argument("--sinc-quality", type=int, default=50)
     sp.add_argument("--zeropad", type=int, default=1)
-    sp.add_argument("--device", default="cuda",
-                    help="torch device: cuda (default) or cpu")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("tapesync", help="align source to reference (pytapesynch)")
+    sp.add_argument("reference")
+    sp.add_argument("source", nargs="?", help="omit when reference is a .tapesync project")
+    sp.add_argument("--windows", type=int, default=8)
+    sp.add_argument("--window-s", type=float, default=1.0)
+    sp.add_argument("--lower", type=float, default=100.0)
+    sp.add_argument("--upper", type=float, default=None)
+    sp.add_argument("--smoothing", type=int, default=3)
+    sp.add_argument("--sinc-quality", type=int, default=50)
+    sp.add_argument("--suffix", default="")
+    sp.add_argument("--save-project", action="store_true",
+                    help="write lag markers to <source>.tapesync (GUI Save parity)")
+    sp.add_argument("--compare", metavar="PNG_OR_HTML",
+                    help="overlay of reference vs aligned output (not ported yet)")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("heal", help="dropout healing (dropout_healer)")
+    sp.add_argument("input")
+    sp.add_argument("--project", help=".drop project with markers")
+    sp.add_argument("--detect", nargs=4, type=float, metavar=("T0", "T1", "F0", "F1"),
+                    help="auto-detect inside this region instead")
+    sp.add_argument("--width-ms", type=float, default=20.0)
+    sp.add_argument("--sensitivity", type=float, default=5.0)
+    _add_fft_args(sp, 512, 16)
+    sp.add_argument("--suffix", default="")
+    sp.add_argument("--stream", action="store_true",
+                    help="force the blockwise larger-than-memory path")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("dropouts-batch", help="batch heuristic dropout repair")
+    sp.add_argument("inputs", nargs="+")
+    sp.add_argument("--mode", default="Heuristic", choices=["Heuristic", "MaxMono"])
+    _add_fft_args(sp, 1024, 4)
+    # heuristic tuning (the reference's DropsWidget, widgets.py:686-765)
+    sp.add_argument("--max-width", type=float, default=0.02,
+                    help="max dropout width in seconds")
+    sp.add_argument("--max-slope", type=float, default=0.5,
+                    help="max dB/frame slant around a dropout")
+    sp.add_argument("--num-bands", type=int, default=12)
+    sp.add_argument("--bottom-freedom", type=float, default=2.0)
+    sp.add_argument("--f-lower", type=float, default=3000.0)
+    sp.add_argument("--f-upper", type=float, default=12000.0)
+    sp.add_argument("--suffix", default="")
+    sp.add_argument("--stream", action="store_true",
+                    help="force the blockwise larger-than-memory path")
+    _add_device_arg(sp)
     return p
 
 
@@ -87,13 +146,14 @@ def main(argv=None) -> int:
 
         audio_io.set_output_format("flac", bits=args.flac_out,
                                    level=0 if args.flac_fast else 1)
-    run = _respeed_batch if args.cmd == "respeed-batch" else _respeed
+    run = {"respeed": _respeed, "respeed-batch": _respeed_batch, "tapesync": _tapesync,
+           "heal": _heal, "dropouts-batch": _dropouts_batch}[args.cmd]
     try:
-        outs = run(args)
+        out = run(args)
     except NotImplementedError as e:
         print(f"error: not ported yet: {e}", file=sys.stderr)
         return 2
-    print(json.dumps({"outputs": outs}))
+    print(json.dumps(out if isinstance(out, dict) else {"outputs": out}))
     return 0
 
 
@@ -134,6 +194,72 @@ def _respeed_batch(args):
         args.inputs, args.f0, fft_size=args.fft_size,
         fft_overlap=max(1, args.fft_size // args.step), zeropad=args.zeropad,
         sinc_quality=args.sinc_quality, device=args.device)
+
+
+def _tapesync(args):
+    if args.compare:
+        _not_ported("tapesync --compare (models/viz, viz_html)")
+    from .pipelines import tapesynch
+    from .utils import project
+
+    ref, src = args.reference, args.source
+    if ref.endswith(".tapesync"):
+        proj = project.Project.load(ref)
+        ref = proj.settings.get("reference")
+        src = src or proj.settings.get("source")
+    paths, samples, _ = tapesynch.align_files(
+        ref, src, out_suffix=args.suffix, num_windows=args.windows,
+        window_s=args.window_s, lower=args.lower, upper=args.upper,
+        smoothing=args.smoothing, sinc_quality=args.sinc_quality,
+        save_project=args.save_project, device=args.device)
+    return {"outputs": paths, "lags": [s.to_cfg() for s in samples]}
+
+
+def _heal(args):
+    from .pipelines import dropouts
+    from .utils import project
+
+    if args.project:
+        proj = project.Project.load(args.project)
+        drops = proj.marker_list("dropouts")
+        fft_size, overlap = proj.fft_size, proj.fft_overlap
+    elif args.detect is None:
+        raise ValueError("heal needs either --project or --detect T0 T1 F0 F1")
+    else:
+        from .ops import fourier, units
+        from .utils import audio_io
+
+        fft_size, overlap = args.fft_size, args.fft_overlap
+        signal, sr, _ = audio_io.read_file(args.input)
+        hop = fft_size // overlap
+        mag = fourier.get_mag(signal[:, 0], fft_size, hop, device=args.device)
+        t0, t1, f0, f1 = args.detect
+        drops = dropouts.detect_dropouts(units.to_dB(mag.cpu().numpy()), sr, hop,
+                                         fft_size, t0, t1, f0, f1, args.width_ms,
+                                         args.sensitivity)
+    out = dropouts.heal_file(args.input, drops, fft_size, overlap, suffix=args.suffix,
+                             stream=True if args.stream else "auto", device=args.device)
+    return {"outputs": [out], "num_dropouts": len(drops)}
+
+
+def _dropouts_batch(args):
+    from .pipelines import dropouts
+
+    stream = True if args.stream else "auto"
+    outs = []
+    for path in args.inputs:
+        if args.mode == "Heuristic":
+            outs.append(dropouts.process_heuristic(
+                path, args.fft_size, args.fft_overlap, max_width=args.max_width,
+                max_slope=args.max_slope, num_bands=args.num_bands,
+                bottom_freedom=args.bottom_freedom, f_lower=args.f_lower,
+                f_upper=args.f_upper, suffix=args.suffix, stream=stream,
+                device=args.device))
+        else:
+            outs.extend(dropouts.process_max_mono(
+                path, args.fft_size, args.fft_overlap, suffix=args.suffix,
+                stream=stream, device=args.device))
+    return outs
 
 
 def _not_ported(what: str):

@@ -23,6 +23,9 @@ sources and flags (a stale build is never loaded), and bound with
 Every wrapper sends a CUDA tensor to its kernel (or raises) and a CPU tensor
 to its plain PyTorch version, which ``chip_smoke.py`` also holds each entry
 against on the card; each counts its kernel launches in ``.launches``.
+A failed build, load or launch raises :class:`KernelError`, and arguments
+a kernel cannot take raise :class:`KernelArgumentError` (also a
+``ValueError``), so callers that tolerate data faults can tell them apart.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-__all__ = ["sinc_banded", "sinc_banded_plain", "sinc_banded_plan",
-           "sinc_banded_plan_plain", "sinc_banded_gathered",
+__all__ = ["KernelError", "KernelArgumentError", "sinc_banded", "sinc_banded_plain",
+           "sinc_banded_plan", "sinc_banded_plan_plain", "sinc_banded_gathered",
            "sinc_banded_gathered_plan", "sinc_banded_gathered_plan_plain",
            "sinc_shift_mac", "gather_windows", "fixed_order_cumsum",
            "segment_grids", "build"]
@@ -53,6 +56,14 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 _lib_lock = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch."""
+
+
+class KernelArgumentError(KernelError, ValueError):
+    """A kernel wrapper was given arguments its kernel cannot take."""
 
 
 def _nvcc() -> str:
@@ -78,7 +89,7 @@ def build() -> Path:
     cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
+        raise KernelError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
                            f"{r.stdout}{r.stderr}")
     os.replace(tmp, so)
     return so
@@ -97,7 +108,10 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            try:
+                lib = ctypes.CDLL(str(build()))
+            except OSError as e:
+                raise KernelError(f"loading the kernel library failed: {e}") from e
             for name, argtypes in _ENTRIES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -126,28 +140,28 @@ def smem_bytes(max_n: int, nt: int, drift: int, plan: bool) -> int:
 def _check_grids(bs, rel, in_seg, nt: int, drift: int):
     """Validate the (T, max_n) grids and the tap parameters; returns (T, max_n)."""
     if bs.dim() != 2:
-        raise ValueError("bs must be (T, max_n)")
+        raise KernelArgumentError("bs must be (T, max_n)")
     T, max_n = bs.shape
     for name, t, dt in (("bs", bs, torch.float32), ("rel", rel, torch.float32),
                         ("in_seg", in_seg, torch.bool)):
         if t.dtype != dt or tuple(t.shape) != (T, max_n):
-            raise ValueError(f"{name} must be {dt} of shape {(T, max_n)}")
+            raise KernelArgumentError(f"{name} must be {dt} of shape {(T, max_n)}")
     if nt < 1 or drift < 0:
-        raise ValueError(f"need nt >= 1 and drift >= 0, got {nt}, {drift}")
+        raise KernelArgumentError(f"need nt >= 1 and drift >= 0, got {nt}, {drift}")
     return T, max_n
 
 
 def _check_plan(s_lo, s_hi, n, base_frac, max_n: int, nt: int, drift: int):
     """Validate the (T,) plan and the tap parameters; returns T."""
     if s_lo.dim() != 1:
-        raise ValueError("s_lo must be (T,)")
+        raise KernelArgumentError("s_lo must be (T,)")
     T = s_lo.shape[0]
     for name, t, dt in (("s_lo", s_lo, torch.float32), ("s_hi", s_hi, torch.float32),
                         ("n", n, torch.int32), ("base_frac", base_frac, torch.float32)):
         if t.dtype != dt or tuple(t.shape) != (T,):
-            raise ValueError(f"{name} must be {dt} of shape {(T,)}")
+            raise KernelArgumentError(f"{name} must be {dt} of shape {(T,)}")
     if max_n < 0 or nt < 1 or drift < 0:
-        raise ValueError(f"need max_n >= 0, nt >= 1 and drift >= 0, got {max_n}, "
+        raise KernelArgumentError(f"need max_n >= 0, nt >= 1 and drift >= 0, got {max_n}, "
                          f"{nt}, {drift}")
     return T
 
@@ -159,17 +173,17 @@ def _kernel_device(name: str, tensors: dict, max_n: int, nt: int, drift: int,
     its grid scan in a block's shared memory)."""
     devs = {t.device for t in tensors.values()}
     if len(devs) != 1:
-        raise ValueError(f"all inputs must be on one device, got {devs}")
+        raise KernelArgumentError(f"all inputs must be on one device, got {devs}")
     dev = devs.pop()
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
+        raise KernelArgumentError(f"{name} runs on cuda or cpu tensors, not {dev}")
     if dev.type == "cuda":
         for key, t in tensors.items():
             if not t.is_contiguous():
-                raise ValueError(f"{key} must be contiguous")
+                raise KernelArgumentError(f"{key} must be contiguous")
         smem = smem_bytes(max_n, nt, drift, plan)
         if smem > 227 * 1024:
-            raise ValueError(f"a row needs {smem} bytes of shared memory, over the "
+            raise KernelArgumentError(f"a row needs {smem} bytes of shared memory, over the "
                              "227 KB of a block")
     return dev
 
@@ -181,7 +195,7 @@ def _launch(entry: str, dev, args):
     with torch.cuda.device(dev):
         rc = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"{entry} kernel launch failed: CUDA error {rc}")
 
 
 def sinc_banded(sig_flat, base_int, bs, rel, in_seg, nt: int, drift: int):
@@ -195,9 +209,9 @@ def sinc_banded(sig_flat, base_int, bs, rel, in_seg, nt: int, drift: int):
     ``drift``: the anchor drift bound of the plan."""
     T, max_n = _check_grids(bs, rel, in_seg, nt, drift)
     if sig_flat.dim() != 1 or sig_flat.dtype != torch.float32:
-        raise ValueError("sig_flat must be a 1-D float32 tensor")
+        raise KernelArgumentError("sig_flat must be a 1-D float32 tensor")
     if base_int.dtype != torch.int32 or tuple(base_int.shape) != (T,):
-        raise ValueError(f"base_int must be int32 of shape {(T,)}")
+        raise KernelArgumentError(f"base_int must be int32 of shape {(T,)}")
     dev = _kernel_device("sinc_banded", {
         "sig_flat": sig_flat, "base_int": base_int, "bs": bs, "rel": rel,
         "in_seg": in_seg}, max_n, nt, drift)
@@ -226,7 +240,7 @@ def sinc_banded_gathered(buf, bs, rel, in_seg, nt: int, drift: int):
     T, max_n = _check_grids(bs, rel, in_seg, nt, drift)
     L = max_n + 2 * (nt + drift)
     if buf.dtype != torch.float32 or tuple(buf.shape) != (T, L):
-        raise ValueError(f"buf must be float32 of shape {(T, L)}")
+        raise KernelArgumentError(f"buf must be float32 of shape {(T, L)}")
     dev = _kernel_device("sinc_banded_gathered", {
         "buf": buf, "bs": bs, "rel": rel, "in_seg": in_seg}, max_n, nt, drift)
     if dev.type == "cpu":
@@ -258,9 +272,9 @@ def sinc_banded_plan(sig_flat, base_int, s_lo, s_hi, n, base_frac, max_n: int,
     drift bound of the plan."""
     T = _check_plan(s_lo, s_hi, n, base_frac, max_n, nt, drift)
     if sig_flat.dim() != 1 or sig_flat.dtype != torch.float32:
-        raise ValueError("sig_flat must be a 1-D float32 tensor")
+        raise KernelArgumentError("sig_flat must be a 1-D float32 tensor")
     if base_int.dtype != torch.int32 or tuple(base_int.shape) != (T,):
-        raise ValueError(f"base_int must be int32 of shape {(T,)}")
+        raise KernelArgumentError(f"base_int must be int32 of shape {(T,)}")
     dev = _kernel_device("sinc_banded_plan", {
         "sig_flat": sig_flat, "base_int": base_int, "s_lo": s_lo, "s_hi": s_hi,
         "n": n, "base_frac": base_frac}, max_n, nt, drift, plan=True)
@@ -293,7 +307,7 @@ def sinc_banded_gathered_plan(buf, s_lo, s_hi, n, base_frac, max_n: int, nt: int
     T = _check_plan(s_lo, s_hi, n, base_frac, max_n, nt, drift)
     L = max_n + 2 * (nt + drift)
     if buf.dtype != torch.float32 or tuple(buf.shape) != (T, L):
-        raise ValueError(f"buf must be float32 of shape {(T, L)}")
+        raise KernelArgumentError(f"buf must be float32 of shape {(T, L)}")
     dev = _kernel_device("sinc_banded_gathered_plan", {
         "buf": buf, "s_lo": s_lo, "s_hi": s_hi, "n": n, "base_frac": base_frac},
         max_n, nt, drift, plan=True)

@@ -1,16 +1,20 @@
 """FFT cross-correlation and sub-sample parabolic refinement (counterpart of
-pyaudiorestoration_tpu/ops/correlation.py:21-88).
+pyaudiorestoration_tpu/ops/correlation.py).
 
 Normalised correlation of unit-energy inputs, scipy's 'full' / 'same' /
-'valid' layouts, and the quadratic peak interpolation.  ``find_delay`` and
-``find_delay_batch`` are not ported yet.
+'valid' layouts, the quadratic peak interpolation, and the delay estimator
+``find_delay`` with its batched form ``find_delay_batch`` (one call for a
+stack of windows, as tapesync's alignment needs).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["xcorr", "parabolic", "parabolic_batch"]
+from ..utils.device import as_device_tensor
+from .fourier import get_window
+
+__all__ = ["xcorr", "find_delay", "find_delay_batch", "parabolic", "parabolic_batch"]
 
 
 def _next_fast_len(n: int) -> int:
@@ -73,3 +77,35 @@ def xcorr(a, b, mode: str = "full"):
         start = min(la, lb) - 1
         return full[..., start:start + max(la, lb) - min(la, lb) + 1]
     raise ValueError(mode)
+
+
+def _find_delay_core(a, b, ignore_phase: bool, window_name):
+    """Delay of each row of ``b`` against ``a`` (B, n), in samples, with the
+    peak correlation (correlation.py:91-107): the argmax is clamped to
+    [1, n-2] so the 3-point parabola stays in range."""
+    if window_name:
+        a = a * torch.as_tensor(get_window(window_name, a.shape[-1]), device=a.device)
+        b = b * torch.as_tensor(get_window(window_name, b.shape[-1]), device=b.device)
+    res = xcorr(a, b, mode="same")
+    max_index = torch.argmax(torch.abs(res) if ignore_phase else res, dim=-1)
+    max_index = torch.clamp(max_index, 1, res.shape[-1] - 2)
+    i_peak, corr = parabolic_batch(res, max_index)
+    return i_peak - res.shape[-1] // 2, corr
+
+
+def find_delay(a, b, ignore_phase: bool = False, window_name=None, device="cuda"):
+    """Delay between 1-D signals a and b in samples, and their correlation
+    (correlation.py:110-114).  Tensors keep their device; host arrays are
+    uploaded to ``device``.  Returns two 0-d tensors."""
+    a = as_device_tensor(a, device, torch.float32)
+    b = as_device_tensor(b, device, torch.float32).to(a.device)
+    d, c = _find_delay_core(a[None, :], b[None, :], bool(ignore_phase), window_name)
+    return d[0], c[0]
+
+
+def find_delay_batch(a, b, ignore_phase: bool = False, window_name=None, device="cuda"):
+    """Batched delay estimation over (batch, n) stacks in one call
+    (correlation.py:117-123).  Returns (delays, corrs), each (batch,)."""
+    a = as_device_tensor(a, device, torch.float32)
+    b = as_device_tensor(b, device, torch.float32).to(a.device)
+    return _find_delay_core(a, b, bool(ignore_phase), window_name)

@@ -113,9 +113,12 @@ def sosfiltfilt(sos, x, padlen=None, compensated: bool = True, device="cuda"):
     narrowband cascades where the JAX package needs its error-free-transform
     refinement (the name is kept from there).  ``False`` runs it in float32
     (~40-55 dB on narrowband cascades, as the JAX package's plain scan).
-    Returns float32, shaped like ``x``."""
+    A float64 ``x`` enters the float64 scan unrounded; anything else is
+    taken as float32.  Returns float32, shaped like ``x``."""
     sos = np.asarray(sos, dtype=np.float64)
-    x = as_device_tensor(x, device, torch.float32)
+    x = as_device_tensor(x, device)
+    if x.dtype != torch.float64:
+        x = x.to(torch.float32)
     if padlen is None:
         # scipy's sosfiltfilt edge formula (first-order sections shorten it)
         ntaps = 2 * sos.shape[0] + 1

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``pyaudiorestoration_tpu_torch``,
 nor ``chip_smoke.py`` or ``profile_stages.py``, imports JAX or anything of the
-JAX package, and ``respeed --fast --device cpu`` runs with both blocked."""
+JAX package, and ``respeed --fast``, ``tapesync``, ``heal`` and
+``dropouts-batch`` run with ``--device cpu`` and both blocked."""
 
 import ast
 import json
@@ -46,9 +47,19 @@ def test_imports_no_jax_nor_the_jax_package(path):
 
 
 _RUN_BLOCKED = """
-import json, sys
-for name in ("jax", "jaxlib", "pyaudiorestoration_tpu"):
-    sys.modules[name] = None  # any import of them now raises ImportError
+import importlib.abc, json, sys
+BLOCKED = ("jax", "jaxlib", "pyaudiorestoration_tpu")
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked")
+
+# any import of them now raises ImportError; they are absent from
+# sys.modules, as where they are not installed (scipy probes sys.modules)
+for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[m]
+sys.meta_path.insert(0, Blocker())
 from pyaudiorestoration_tpu_torch import cli
 rc = cli.main(sys.argv[1:])
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
@@ -79,3 +90,41 @@ def test_respeed_fast_runs_with_the_jax_package_blocked(tmp_path):
     osr, y = wavfile.read(out)
     assert osr == sr and y.shape[1] == 2 and np.all(np.isfinite(y))
     assert abs(len(y) - len(sig)) < 0.02 * len(sig)
+
+
+def _run_blocked(argv, cwd):
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    r = subprocess.run([sys.executable, "-c", _RUN_BLOCKED, *argv, "--device", "cpu"],
+                       cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert json.loads(lines[-1]) == {"rc": 0, "loaded": []}
+    return json.loads(lines[-2])
+
+
+@pytest.mark.parametrize("cmd", ["tapesync", "heal", "dropouts-batch"])
+def test_spectral_tools_run_with_the_jax_package_blocked(tmp_path, cmd):
+    sr = 8000
+    rng = np.random.default_rng(5)
+    base = np.cumsum(rng.standard_normal(4 * sr + 400)).astype(np.float32)
+    base = 0.5 * (base - base.mean()) / np.abs(base - base.mean()).max()
+    x = np.stack([base[:4 * sr], 0.7 * base[:4 * sr]], -1)
+    x[sr:sr + 400] *= 0.05
+    src = tmp_path / "a.wav"
+    wavfile.write(src, sr, x)
+    if cmd == "tapesync":
+        other = tmp_path / "b.wav"
+        wavfile.write(other, sr, np.stack([base[400:], base[400:]], -1))
+        argv = [cmd, str(src), str(other), "--windows", "4", "--window-s", "0.5",
+                "--sinc-quality", "8"]
+        want = [str(tmp_path / "b_res.wav")]
+    elif cmd == "heal":
+        argv = [cmd, str(src), "--detect", "0.5", "2.0", "200", "3000"]
+        want = [str(tmp_path / "a_drops.wav")]
+    else:
+        argv = [cmd, str(src), "--mode", "MaxMono"]
+        want = [str(tmp_path / "amax.wav"), str(tmp_path / "amin.wav")]
+    assert _run_blocked(argv, ROOT)["outputs"] == want
+    for path in want:
+        osr, y = wavfile.read(path)
+        assert osr == sr and np.all(np.isfinite(y)) and abs(len(y) - len(x)) < 0.02 * len(x)
