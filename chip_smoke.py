@@ -15,7 +15,9 @@ zeropad 2, sinc quality 50):
        noise through the same plan; its time beside segment_grids + the
        grid-taking entry, the plain version and its bound
   4    the ``respeed --fast`` CLI, file to file: one K1 launch
-  5    that restore on the card against the port's CPU path, small take
+  5    that restore on the card against the port's CPU path, small take:
+       the speed curves, the output from the card's curve, and the CPU's
+       own output where the curves are equal
   6    K2's plan entry likewise at the fused plan's shape
   7    ``restore_fused_device`` on the stereo take, K1 then K2 (bench.py:130):
        one launch each
@@ -41,19 +43,36 @@ zeropad 2, sinc quality 50):
   15   ``tapesync`` at its defaults on a 60 s 44.1 kHz stereo pair (the source
        5 % fast and 60 ms late): the ratio, the batched alignment, K1's
        launches, the aligned output; K1's grid entry at ``run``'s shape
+  16-24 the spectral and analysis tools through the CLI, each cold and
+       warm (median of 3), on the 30 s take unless said: ``difeq`` (the
+       source through a +6 dB shelf: the EQ within 1 dB of its inverse;
+       streamed spectra), ``expand`` (a stepped hiss floor; defaults and
+       ``--transition 8000``, each with ``--stream``), ``hpss`` (clicks
+       added; H + P, ``--stream``, ``--margin 2``, the median filter's
+       device time), ``renoise`` (``--selection`` and ``--stream``;
+       ``--noise`` at 176.4 kHz through K1's grid entry, and at 48 kHz;
+       ``sniff_offset``), ``humspeed`` (hum 1.5 % fast: the ratio, K1's grid
+       entry in memory and its plan entry with ``--stream``), ``pan`` (a
+       measured two-sample ``.pan``), ``decompress`` (with and without
+       ``--sync``, each with ``--stream``), ``group-delay`` (a 60 s 44.1 kHz
+       pair 21 samples apart) and ``cyclic-wow`` (a 60 s transfer of a
+       44 rpm record)
 
-Phases print on their own lines (13-15 beside the card's name and power
+Phases print on their own lines (13-24 beside the card's name and power
 limit); the line before the last is a JSON object with each kernel's
 launches on the main paths, its error against the plain version, its time,
 the plain version's, its bound and share of it, and the walls of phases
-13-15; the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
+13-24; the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
 ..., "count": ...}}``.  Any failure raises and exits non-zero with no result
 line.  Imports no JAX.
 """
 
+import contextlib
+import io
 import json
 import math
 import os
+import platform
 import statistics
 import struct
 import subprocess
@@ -141,6 +160,53 @@ def compare_compacted(a, b, what):
           f"share > 1e-2 {(d > 1e-2).mean():.4f}")
     if abs(len(a) - len(b)) > 2 or not np.median(d) < 1e-4 or not (d > 1e-2).mean() < 0.01:
         raise RuntimeError(f"{what}: outputs disagree")
+
+
+def card_vs_cpu_restore(rt):
+    """``restore_file_fast`` on the card against the port's CPU path on a
+    2.5 s 22.05 kHz take.  The tracking GEMM is float32 on both (cuBLAS; the
+    host's BLAS, whose order depends on its CPU), so a frame's refined peak
+    may move by a few 1e-4 bins, and a quantized log speed may round the
+    other way: the exact-limb mean then moves by 2**-16 / T and scales the
+    whole curve by ~5e-8 at this T, which shifts the output by up to
+    hop ln2 / 65536 samples (ROADMAP queue 3).  So the speed curves are
+    held within 2e-5 of each other (a hundredth of a bin at the pilot's
+    bin, ~585); the card's output is held by the compacted-sample rule to
+    the CPU's restore from the card's curve (``restore_file_streamed
+    (speed_curve=)``: the same plan, K1's plain version, the same
+    compaction); and, where the two curves are equal, to the CPU's own."""
+    kw = dict(fft_size=2048, fft_overlap=8, zeropad=2, sinc_quality=30)
+    small = wow_take(22050, 2.5, seed=1)
+    curves, real = [], rt.plan_positions_fast
+
+    def spy(speeds, *a, **k):  # the curve each restore plans from
+        curves.append(np.asarray(speeds))
+        return real(speeds, *a, **k)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = []
+        rt.plan_positions_fast = spy
+        try:
+            for d in ("cuda", "cpu"):
+                src = os.path.join(tmp, f"{d}.wav")
+                wavfile.write(src, 22050, small)
+                outs.append(wavfile.read(rt.restore_file_fast(src, device=d, **kw))[1])
+        finally:
+            rt.plan_positions_fast = real
+        src = os.path.join(tmp, "replay.wav")
+        wavfile.write(src, 22050, small)
+        replay = wavfile.read(rt.restore_file_streamed(src, speed_curve=curves[0],
+                                                       resume=False, device="cpu",
+                                                       **kw))[1]
+    s_card, s_cpu = (c.astype(np.float64) for c in curves)
+    rel = np.abs(s_cpu / s_card - 1.0)
+    print(f"card vs cpu speed curves ({len(s_card)} frames): {int((rel > 0).sum())} differ, "
+          f"max relative |d| {rel.max():.2e} (tol 2e-5)")
+    if len(s_card) != len(s_cpu) or not rel.max() <= 2e-5:
+        raise RuntimeError("card vs cpu: the tracked speed curves disagree")
+    compare_compacted(outs[0], replay, "cuda vs cpu from the card's curve (2.5 s, 22.05 kHz)")
+    if np.array_equal(s_card, s_cpu):
+        compare_compacted(*outs, "cuda vs cpu (2.5 s, 22.05 kHz)")
 
 
 ENTRIES = ("sinc_banded", "sinc_banded_plan", "sinc_banded_gathered",
@@ -654,11 +720,15 @@ def walls(fn, reps):
 
 
 def run_cli(argv):
+    """``cli.main(argv)``'s JSON result line, not echoed (it must return 0)."""
     from pyaudiorestoration_tpu_torch import cli
 
-    rc = cli.main(argv)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
     if rc != 0:
         raise RuntimeError(f"{argv}: rc {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
 def dropout_take(sr, seconds, n_drops, seed=0):
@@ -948,6 +1018,458 @@ def tapesync_phase(dev, smi):
             "lag_err_s": lag_err, "k1 resample_ratio": n_rr, "k1 run": n_run}, k1
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-24: the spectral and analysis tools through the CLI
+# ---------------------------------------------------------------------------
+
+def tool_walls(name, argv, smi, reps=3, seconds=SECONDS):
+    """Phase walls of one CLI run on a ``seconds`` take: cold, then the
+    median of ``reps`` warm runs; K1's launches in the cold run.  Prints
+    them beside the card."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        k1, cold, warm, runs = timed_cli(argv, reps)
+    print(f"[{smi}] {name}: cold {cold:.3f} s, warm {warm:.3f} s (runs "
+          f"{', '.join(f'{r:.3f}' for r in runs)}), {seconds / warm:.1f}x realtime; "
+          f"K1 launches {k1}")
+    return {"cold_s": cold, "warm_s": warm, "k1_launches": k1}
+
+
+def interior_err(a, b, h):
+    """max |a - b| away from ``h`` samples at either end (inf on a shape
+    mismatch)."""
+    if a.shape != b.shape:
+        return math.inf
+    return float(np.abs(a[h:-h] - b[h:-h]).max())
+
+
+def require(ok, what):
+    if not ok:
+        raise RuntimeError(what)
+
+
+def shelf(sr, f0=2000.0, gain=2.0):
+    """A first-order high shelf (+6 dB above ``f0``), bilinear: (b, a)."""
+    from scipy import signal as dsp
+
+    w0 = 2 * math.pi * f0
+    return dsp.bilinear([gain, w0], [1.0, w0], fs=sr)
+
+
+def difeq_phase(take, dev, smi):
+    """Phase 16: ``difeq`` on a 30 s pair at fft 16384 / hop 8192 (get_eq's
+    defaults), the source the take through a +6 dB high shelf: the
+    recovered EQ within 1 dB of the shelf's inverse response over
+    100 Hz-20 kHz; the streamed mean spectra within 1e-3 dB of in memory."""
+    from scipy import signal as dsp
+
+    from pyaudiorestoration_tpu_torch.models import spectrum_flat
+    from pyaudiorestoration_tpu_torch.pipelines import difeq
+
+    b, a = shelf(SR)
+    src_sig = dsp.lfilter(b, a, take, axis=0).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, src = os.path.join(tmp, "ref.wav"), os.path.join(tmp, "src.wav")
+        wavfile.write(ref, SR, take)
+        wavfile.write(src, SR, src_sig)
+        argv = ["difeq", src, ref, "-o", os.path.join(tmp, "eq"), "--device", str(dev)]
+        res = tool_walls("difeq (30 s pair, fft 16384/8192)", argv, smi)
+        for path in run_cli(argv)["outputs"]:
+            with open(path) as f:
+                text = f.read()
+            require(text.startswith("FilterCurve:") and "nan" not in text,
+                    f"difeq: bad curve file {path}")
+        freqs, eq = difeq.get_eq(src, ref, "L+R", device=dev)
+        _, h = dsp.freqz(b, a, worN=freqs, fs=SR)
+        band = (freqs >= 100) & (freqs <= 20000)
+        err = float(np.abs(eq[:, band] + 20 * np.log10(np.abs(h[band]))).max())
+        mem, _ = spectrum_flat.spectra_from_audio(ref, 16384, 8192, "L+R", stream=False,
+                                                  device=dev)
+        streamed, _ = spectrum_flat.spectra_from_audio(ref, 16384, 8192, "L+R",
+                                                       stream=True, device=dev)
+        err_s = max(float(np.abs(x - y).max()) for x, y in zip(mem, streamed))
+    print(f"difeq: recovered EQ vs the shelf's inverse over 100 Hz-20 kHz max|d| "
+          f"{err:.4f} dB (tol 1 dB); streamed vs in-memory spectra max|d| {err_s:.2e} dB "
+          f"(tol 1e-3)")
+    require(err <= 1.0, f"difeq: EQ {err} dB from the filter's response")
+    require(err_s <= 1e-3, f"difeq: streamed spectra {err_s} dB from in memory")
+    return {**res, "eq_err_db": err, "stream_err_db": err_s}
+
+
+def hiss_take(sr, seconds, seed=0):
+    """wow_take's tone at -50 dBFS (at 192 kHz and fft 512 a 0.5 tone's
+    window leakage reaches -90 dB in the expander's 13-17 kHz band) over a
+    hiss floor that steps 20 dB at 0.4 Hz: about -115 and -95 dB in that
+    band, inside the default clip range."""
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    speed = (1.0 + 0.008 * np.sin(2 * np.pi * 0.55 * t)
+             + 0.0015 * np.sin(2 * np.pi * 6.3 * t + 1.0))
+    amp = np.where(np.sin(2 * np.pi * 0.4 * t) > 0, 3e-5, 3e-6)
+    hiss = amp * np.random.default_rng(seed).standard_normal(n)
+    mono = (0.003 * np.sin(2 * np.pi * F0 * np.cumsum(speed) / sr) + hiss).astype(np.float32)
+    return np.stack([mono, mono * 0.8], -1)
+
+
+def expand_phase(dev, smi):
+    """Phase 17: ``expand`` at the defaults and with ``--transition 8000`` on
+    the 30 s take with a stepped hiss floor: the quiet-hiss sections raised
+    20 dB against the loud ones (to_fac of the band levels' difference);
+    ``--stream`` within 2e-4 of in memory in the interior
+    (tests/test_streaming_tools.py:199)."""
+    from pyaudiorestoration_tpu_torch.utils import audio_io
+
+    take = hiss_take(SR, SECONDS)
+    res, errs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "hiss.wav")
+        wavfile.write(src, SR, take)
+        for name, extra in (("defaults", []), ("transition", ["--transition", "8000"])):
+            argv = ["expand", src, "--device", str(dev), *extra]
+            res[name] = tool_walls(f"expand {' '.join(extra) or '(defaults)'}", argv, smi)
+            out = audio_io.read_file(os.path.join(tmp, "hiss_decompressed.wav"))[0]
+            t0 = time.perf_counter()
+            run_cli(argv + ["--stream", "--suffix", "_str"])
+            res[name]["stream_s"] = time.perf_counter() - t0
+            streamed = audio_io.read_file(os.path.join(tmp, "hiss_str.wav"))[0]
+            errs[name] = interior_err(out, streamed, 4096)
+            require(np.all(np.isfinite(out)) and out.shape == take.shape,
+                    f"expand {name}: output {out.shape}")
+            if name == "defaults":
+                lift = 20 * math.log10(rms(out[:, 0], SR, 1.5, 2.3) / rms(out[:, 0], SR, 0.2, 1.0))
+    print(f"expand: quiet-hiss sections raised {lift:.2f} dB against the loud ones "
+          f"(want 20 +- 2); --stream vs in memory interior max|d| defaults "
+          f"{errs['defaults']:.2e}, --transition 8000 {errs['transition']:.2e} (tol 2e-4); "
+          f"--stream {res['defaults']['stream_s']:.3f} / {res['transition']['stream_s']:.3f} s")
+    require(abs(lift - 20.0) <= 2.0, f"expand: gain step {lift} dB")
+    require(max(errs.values()) <= 2e-4, f"expand --stream disagrees: {errs}")
+    return {k: {**v, "stream_err": errs[k]} for k, v in res.items()}
+
+
+def hpss_phase(take, dev, smi):
+    """Phase 18: ``hpss`` at the defaults (fft 2048/4, kernel 31) on the take
+    plus clicks every 0.25 s, and ``--margin 2`` (which writes ``_R``): H + P
+    equals the input within 1e-3 in the interior, the tone goes to H and
+    the clicks to P; ``--stream`` within 1e-5 of in memory in the interior;
+    the median filter's own device time on the take's spectrogram."""
+    from pyaudiorestoration_tpu_torch.ops import decompose, fourier
+    from pyaudiorestoration_tpu_torch.utils import audio_io
+
+    x = take.copy()
+    clicks = np.arange(SR // 4, len(x) - 1, SR // 4)
+    x[clicks] += 0.8
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "mix.wav")
+        wavfile.write(src, SR, x)
+        argv = ["hpss", src, "--device", str(dev)]
+        res = tool_walls("hpss (defaults)", argv, smi)
+        H, P = (audio_io.read_file(os.path.join(tmp, f"mix_{c}.wav"))[0] for c in "HP")
+        t0 = time.perf_counter()
+        run_cli(argv + ["--stream", "--suffix", "_str"])
+        res["stream_s"] = time.perf_counter() - t0
+        err_s = max(interior_err(a, audio_io.read_file(os.path.join(tmp, f"mix_{c}_str.wav"))[0],
+                                 8192) for c, a in zip("HP", (H, P)))
+        t0 = time.perf_counter()
+        paths = run_cli(argv + ["--margin", "2", "--suffix", "_m2"])["outputs"]
+        res["margin2_s"] = time.perf_counter() - t0
+        R = audio_io.read_file(paths[2])[0]
+    err_sum = interior_err(H + P, x, 8192)
+    corr = float(np.corrcoef(H[SR:-SR, 0], take[SR:-SR, 0])[0, 1])
+    p_clicks, h_clicks = np.abs(P[clicks[4:-4], 0]).mean(), np.abs(H[clicks[4:-4], 0]).mean()
+    spec = torch.abs(fourier.stft(torch.as_tensor(np.ascontiguousarray(x.T), device=dev),
+                                  2048, 512))
+    harm_ms = cuda_ms(lambda: decompose.median_filter_1d(spec, 31, axis=-1), 3)
+    perc_ms = cuda_ms(lambda: decompose.median_filter_1d(spec, 31, axis=-2), 3)
+    print(f"hpss: H + P vs input interior max|d| {err_sum:.2e} (tol 1e-3); corr(H, tone) "
+          f"{corr:.4f}; |P| / |H| at the clicks {p_clicks:.3f} / {h_clicks:.3f}; --stream "
+          f"{res['stream_s']:.3f} s, vs in memory interior max|d| {err_s:.2e} (tol 1e-5); "
+          f"--margin 2 {res['margin2_s']:.3f} s, _R {R.shape}; median filter on the "
+          f"{tuple(spec.shape)} spectrogram: along time {harm_ms:.3f} ms, along frequency "
+          f"{perc_ms:.3f} ms (kernel 31)")
+    require(err_sum <= 1e-3 and corr > 0.8 and p_clicks > h_clicks,
+            f"hpss: H+P {err_sum}, corr {corr}, clicks {p_clicks} / {h_clicks}")
+    require(err_s <= 1e-5, f"hpss --stream disagrees with in memory: {err_s}")
+    require(R.shape == x.shape and np.all(np.isfinite(R)), f"hpss --margin 2: R {R.shape}")
+    return {**res, "stream_err": err_s, "median_time_ms": harm_ms, "median_freq_ms": perc_ms}
+
+
+RN_NOISE_SR = 176_400  # resample ratio 0.919 to the take: K1's banded branch
+
+
+def renoise_phase(take, dev, smi):
+    """Phase 19: ``renoise --selection`` on the take, ``--stream`` within 1e-6
+    of it in the interior; ``--noise`` from a 10 s noise file at 176.4 kHz,
+    resampled to the take's rate by ``resample_ratio`` on K1's grid entry
+    (one launch), and K1 there against its plain version; a 48 kHz noise
+    file (ratio 4: the gather branch, no K1); ``sniff_offset``'s time."""
+    from pyaudiorestoration_tpu_torch.ops import resampling as rs
+    from pyaudiorestoration_tpu_torch.pipelines import renoiser
+    from pyaudiorestoration_tpu_torch.utils import audio_io
+
+    rng = np.random.default_rng(19)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "take.wav")
+        wavfile.write(src, SR, take)
+        argv = ["renoise", src, "--selection", "0.5", "1.5", "--device", str(dev)]
+        res["selection"] = tool_walls("renoise --selection 0.5 1.5", argv, smi)
+        out = audio_io.read_file(os.path.join(tmp, "take fft=1024.wav"))[0]
+        t0 = time.perf_counter()
+        run_cli(argv + ["--stream", "--suffix", "_str"])
+        res["selection"]["stream_s"] = time.perf_counter() - t0
+        err_s = interior_err(out, audio_io.read_file(os.path.join(tmp, "take_str.wav"))[0],
+                             1024)
+        noises = {}
+        for sr_n in (RN_NOISE_SR, 48000):
+            noises[sr_n] = (0.01 * rng.standard_normal((10 * sr_n, 2))).astype(np.float32)
+            path = os.path.join(tmp, f"noise{sr_n}.wav")
+            wavfile.write(path, sr_n, noises[sr_n])
+            res[f"noise_{sr_n}"] = tool_walls(
+                f"renoise --noise ({sr_n} Hz noise file)",
+                ["renoise", src, "--noise", path, "--suffix", f"_n{sr_n}", "--device",
+                 str(dev)], smi)
+            out_n = audio_io.read_file(os.path.join(tmp, f"take_n{sr_n}.wav"))[0]
+            require(out_n.shape == take.shape and np.all(np.isfinite(out_n)),
+                    f"renoise --noise {sr_n}: output {out_n.shape}")
+    k1_runs = res[f"noise_{RN_NOISE_SR}"]["k1_launches"]
+    ratio = RN_NOISE_SR / SR
+    pos = np.arange(int(round(10 * RN_NOISE_SR / ratio))) * ratio
+    sig = torch.as_tensor(noises[RN_NOISE_SR][None, :, 0].copy(), device=dev)
+    k1 = k1_grid_check(sig, pos, "renoise --noise's resample_ratio", nt=16)
+    sniff = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        offset = renoiser.sniff_offset(take, SR, 1024, 4, device=dev)
+        torch.cuda.synchronize()
+        sniff.append(time.perf_counter() - t0)
+    sniff_s = statistics.median(sniff)
+    gather = rs.banded_layout(np.arange(10) * 0.25, np.ones(10, np.float32)) is not None
+    print(f"renoise: --stream vs in memory interior max|d| {err_s:.2e} (tol 1e-6); K1 "
+          f"launches with the {RN_NOISE_SR} Hz noise {k1_runs} (want 1), with the 48 kHz "
+          f"noise {res['noise_48000']['k1_launches']} (ratio 0.25: banded {gather}); "
+          f"sniff_offset on the take {sniff_s * 1e3:.3f} ms (runs "
+          f"{', '.join(f'{s * 1e3:.3f}' for s in sniff)}), offset {offset}")
+    require(err_s <= 1e-6, f"renoise --stream disagrees with in memory: {err_s}")
+    require(k1_runs == 1, f"renoise --noise: K1 launches {k1_runs}, want 1")
+    return {**res, "stream_err": err_s, "sniff_offset_s": sniff_s}, k1
+
+
+HUM = (50.75, 101.5, 152.25)  # 50 Hz mains and harmonics, the take 1.5 % fast
+
+
+def zero_cross_hz(x, sr):
+    """Mean frequency of a tone from its sub-sample zero crossings."""
+    x = np.asarray(x, np.float64)
+    idx = np.where(np.bitwise_xor(x[1:] > 0, x[:-1] > 0))[0]
+    cr = idx + x[idx] / (x[idx] - x[idx + 1])
+    return sr / np.mean(np.diff(cr[len(cr) // 4: -len(cr) // 4])) / 2
+
+
+def humspeed_phase(take, dev, smi):
+    """Phase 20: ``humspeed`` on the take with mains hum at 50.75, 101.5 and
+    152.25 Hz (1.5 % fast): the ratio within 1e-3 of 50/50.75; the in-memory
+    resample through ``resample_ratio`` (K1's grid entry, one launch a
+    channel), and K1 there against its plain version; ``--stream`` (the
+    constant curve through the streamed tier, K1's plan entry) at the same
+    pitch and within 5e-3 of in memory after xcorr alignment
+    (tests/test_streaming_tools.py:354-390), and K1's plan entry at that
+    plan against its plain version."""
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+    from pyaudiorestoration_tpu_torch.utils import audio_io
+    from pyaudiorestoration_tpu_torch.utils.convert import plan_to_torch
+
+    t = np.arange(len(take)) / SR
+    x = take + sum(0.05 * np.sin(2 * np.pi * f * t) for f in HUM)[:, None].astype(np.float32)
+    want = 50 / HUM[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "hum.wav")
+        wavfile.write(src, SR, x)
+        argv = ["humspeed", src, "--device", str(dev)]
+        res = tool_walls("humspeed (in-memory resample)", argv, smi)
+        got = run_cli(argv)
+        ratio = got["matches"][-1]["ratio"]
+        a = audio_io.read_file(got["outputs"][0])[0]
+        reset_launches(kb)
+        t0 = time.perf_counter()
+        out_s = run_cli(argv + ["--stream"])["outputs"][0]
+        torch.cuda.synchronize()
+        res["stream_s"] = time.perf_counter() - t0
+        res["k1_stream_launches"] = launches(kb)[0]
+        b = audio_io.read_file(out_s)[0]
+    pitch = [zero_cross_hz(y[:, 0], SR) for y in (a, b)]
+    h = 8192
+    m = min(len(a), len(b)) - h
+    xa, xb = a[h:m, 0], b[h:m, 0]
+    k = int(np.argmax([np.dot(xa[64:4096], xb[64 + k:4096 + k])
+                       for k in range(-64, 65)])) - 64
+    err = float(np.abs(xa[64:20000] - xb[64 + k:20000 + k]).max())
+    print(f"humspeed: matches {[round(mt['freq'], 4) for mt in got['matches']]} Hz, ratio "
+          f"{ratio:.6f} (want {want:.6f}, tol 1e-3); K1 launches in memory "
+          f"{res['k1_launches']} (one a channel), --stream {res['k1_stream_launches']} "
+          f"({res['stream_s']:.3f} s); pitch in memory / streamed {pitch[0]:.4f} / "
+          f"{pitch[1]:.4f} Hz; streamed vs in memory after alignment ({k} samples) max|d| "
+          f"{err:.2e} (tol 5e-3); lengths {len(a)} / {len(b)}")
+    require(abs(ratio - want) <= 1e-3, f"humspeed ratio {ratio}, want {want}")
+    require(res["k1_launches"] == 2 and res["k1_stream_launches"] == 1,
+            f"humspeed: K1 launches {res['k1_launches']} / {res['k1_stream_launches']} "
+            f"(want 2 / 1: one a channel; one tile)")
+    require(abs(pitch[0] - pitch[1]) <= 1e-4 * pitch[0] and err <= 5e-3
+            and abs(len(a) - len(b)) < 1024, f"humspeed --stream: pitch {pitch}, err {err}")
+    sig = torch.as_tensor(np.ascontiguousarray(x.T), device=dev)
+    n_out = int(round(len(x) / ratio))
+    k1_grid = k1_grid_check(sig, np.arange(n_out, dtype=np.float64) * ratio,
+                            "humspeed's resample_ratio", nt=16)
+    hop = 4096 // 8
+    speeds = np.full((len(x) + 2 * 2048 - 4096) // hop + 1, 1.0 / ratio)
+    plan = rt.plan_positions_fast(speeds, hop, len(x))
+    p = plan_to_torch(plan, dev)
+    k1_plan = check_plan_kernel(
+        "K1", sig, (torch.as_tensor(speeds.astype(np.float32), device=dev), p["n"],
+                    p["base_int"], p["base_frac"]), p["max_n"], QUALITY,
+        rt._drift_bucket(p["drift"]), seed=20)
+    return {**res, "ratio": ratio, "stream_err": err}, k1_grid, k1_plan
+
+
+def pan_phase(take, dev, smi):
+    """Phase 21: ``pan`` with a two-sample ``.pan`` project (each box's L/R
+    ratio measured by ``measure_pan``, 1.25 on the take); ``pan_file``
+    streamed within 1e-7 of in memory."""
+    from pyaudiorestoration_tpu_torch.pipelines import pan
+    from pyaudiorestoration_tpu_torch.utils import audio_io, project
+
+    boxes = [((f0 * SECONDS, 200.0), (f1 * SECONDS, 8000.0)) for f0, f1 in ((0.15, 0.35),
+                                                                          (0.65, 0.85))]
+    samples = [pan.measure_pan(take, SR, a, b, device=dev) for a, b in boxes]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, proj = os.path.join(tmp, "take.wav"), os.path.join(tmp, "take.pan")
+        wavfile.write(src, SR, take)
+        project.Project(".pan", {"fft_size": 1024, "fft_overlap": 4},
+                        {"markers": samples}).save(proj)
+        res = tool_walls("pan (.pan project, 2 samples)", ["pan", src, "--project", proj,
+                                                           "--device", str(dev)], smi)
+        out = audio_io.read_file(os.path.join(tmp, "take_out.wav"))[0]
+        t0 = time.perf_counter()
+        streamed = audio_io.read_file(pan.pan_file(src, samples, stream=True, device=dev))[0]
+        res["stream_s"] = time.perf_counter() - t0
+    err = float(np.abs(out - streamed).max()) if out.shape == streamed.shape else math.inf
+    lr = float(np.abs(out[:, 0] - take[:, 0]).max())
+    print(f"pan: measured {[round(s.pan, 5) for s in samples]} (want 1.25); streamed vs "
+          f"in memory max|d| {err:.2e} (tol 1e-7), --stream {res['stream_s']:.3f} s; "
+          f"output (channel 1 x pan) vs channel 0 max|d| {lr:.2e} (tol 1e-3)")
+    require(all(abs(s.pan - 1.25) < 0.01 for s in samples), "pan: measured ratios")
+    require(err <= 1e-7 and lr < 1e-3, f"pan: streamed {err}, vs channel 0 {lr}")
+    return {**res, "stream_err": err}
+
+
+def envelope_db(x, sr, win=0.1):
+    """Channel 0's RMS in ``win``-second windows, in dB."""
+    w = int(win * sr)
+    seg = x[: len(x) // w * w, 0].astype(np.float64).reshape(-1, w)
+    return 10 * np.log10(np.mean(seg * seg, axis=1) + 1e-20)
+
+
+def decompress_phase(take, dev, smi):
+    """Phase 22: ``decompress`` with and without ``--sync`` on the take under
+    a smooth random envelope (reference) and the same compressed to its
+    0.3 power (source): the output's level follows the reference's
+    (envelope correlation over 0.9) and swings at least 6 dB wider than the
+    source's (the gain is clipped to [0, 2]); ``--stream`` within 5e-4 of in
+    memory in the interior (tests/test_streaming_tools.py:351)."""
+    from scipy.ndimage import uniform_filter1d
+
+    from pyaudiorestoration_tpu_torch.utils import audio_io
+
+    n = len(take)
+    w = SR // 5
+    env = np.exp(1.5 * uniform_filter1d(np.random.default_rng(22).standard_normal(n), w,
+                                        mode="wrap") * math.sqrt(w))
+    env = (env / env.max())[:, None]
+    ref_sig = (take * env).astype(np.float32)
+    src_sig = (take * 0.6 * env ** 0.3).astype(np.float32)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, ref = os.path.join(tmp, "src.wav"), os.path.join(tmp, "ref.wav")
+        wavfile.write(src, SR, src_sig)
+        wavfile.write(ref, SR, ref_sig)
+        for name, extra in (("plain", []), ("sync", ["--sync"])):
+            argv = ["decompress", src, ref, "--device", str(dev), *extra]
+            res[name] = tool_walls(f"decompress {' '.join(extra)}".strip(), argv, smi)
+            out = audio_io.read_file(os.path.join(tmp, "src_decompressed.wav"))[0]
+            t0 = time.perf_counter()
+            run_cli(argv + ["--stream"])
+            res[name]["stream_s"] = time.perf_counter() - t0
+            streamed = audio_io.read_file(os.path.join(tmp, "src_decompressed.wav"))[0]
+            res[name]["stream_err"] = interior_err(out, streamed, SR // 2)
+            e_out, e_ref, e_src = (envelope_db(y, SR) for y in (out, ref_sig, src_sig))
+            res[name]["env_corr"] = float(np.corrcoef(e_out[10:-10], e_ref[10:-10])[0, 1])
+            res[name]["swing_db"] = [float(np.ptp(e[10:-10])) for e in (e_src, e_out, e_ref)]
+    print("decompress: " + "; ".join(
+        f"{k}: --stream {v['stream_s']:.3f} s, vs in memory interior max|d| "
+        f"{v['stream_err']:.2e} (tol 5e-4), level swing source / output / reference "
+        f"{v['swing_db'][0]:.1f} / {v['swing_db'][1]:.1f} / {v['swing_db'][2]:.1f} dB, "
+        f"envelope corr with the reference {v['env_corr']:.4f}" for k, v in res.items()))
+    for k, v in res.items():
+        require(v["stream_err"] <= 5e-4, f"decompress {k} --stream: {v['stream_err']}")
+        require(v["env_corr"] > 0.9 and v["swing_db"][1] > v["swing_db"][0] + 6,
+                f"decompress {k}: corr {v['env_corr']}, swings {v['swing_db']}")
+    return res
+
+
+GD_SR, GD_SECONDS, GD_DELAY = 44100, 60.0, 21  # group-delay's pair
+
+
+def group_delay_phase(dev, smi):
+    """Phase 23: ``group-delay`` at its defaults on a 60 s 44.1 kHz noise pair,
+    the source 21 samples late: the median band lag within 1 sample of -21
+    (the source's lateness reads as a negative lag, tests/test_aux.py:163)."""
+    from scipy import signal as dsp
+
+    n = int(GD_SECONDS * GD_SR)
+    rng = np.random.default_rng(23)
+    sos = dsp.butter(2, [20 / (GD_SR / 2), 3000 / (GD_SR / 2)], btype="band", output="sos")
+    ref_sig = (0.3 * dsp.sosfilt(sos, rng.standard_normal((n + GD_DELAY, 2)), axis=0)
+               ).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, src = os.path.join(tmp, "ref.wav"), os.path.join(tmp, "src.wav")
+        wavfile.write(ref, GD_SR, ref_sig[GD_DELAY:])
+        wavfile.write(src, GD_SR, ref_sig[:n])
+        argv = ["group-delay", ref, src, "--device", str(dev)]
+        res = tool_walls("group-delay (60 s 44.1 kHz pair)", argv, smi, seconds=GD_SECONDS)
+        bands = run_cli(argv)["bands"]
+    lags = np.array([b["lag_samples"] for b in bands])
+    med = float(np.median(lags)) if len(lags) else math.nan
+    print(f"group-delay: {len(bands)} bands over min_corr, median lag {med:.4f} samples "
+          f"(want {-GD_DELAY} +- 1), lags {lags.min():.3f} .. {lags.max():.3f}")
+    require(len(bands) >= 10 and abs(med + GD_DELAY) <= 1.0,
+            f"group-delay: {len(bands)} bands, median lag {med}")
+    return {**res, "median_lag": med, "bands": len(bands)}
+
+
+CW_SR, CW_SECONDS, CW_RPM = 44100, 60.0, 44.0  # cyclic-wow's record transfer
+
+
+def cyclic_wow_phase(dev, smi):
+    """Phase 24: ``cyclic-wow`` at its defaults (nominal 45 rpm, fft 16384)
+    on a 60 s 44.1 kHz transfer of a 44 rpm record: a 700 Hz tone with 1 %
+    wow at the rotation rate; ``actual_rpm`` within 2 % of 44."""
+    n = int(CW_SECONDS * CW_SR)
+    t = np.arange(n) / CW_SR
+    speed = 1.0 + 0.01 * np.sin(2 * np.pi * CW_RPM / 60 * t)
+    tone = (0.5 * np.sin(2 * np.pi * 700 * np.cumsum(speed) / CW_SR)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "record.wav")
+        wavfile.write(src, CW_SR, np.stack([tone, tone], -1))
+        argv = ["cyclic-wow", src, "--device", str(dev)]
+        res = tool_walls("cyclic-wow (60 s 44.1 kHz, 44 rpm)", argv, smi, seconds=CW_SECONDS)
+        got = run_cli(argv)
+    print(f"cyclic-wow: actual_rpm {got['actual_rpm']:.4f} (want {CW_RPM} +- 2 %), cycle "
+          f"{got['cycle_duration_s']:.4f} s, wow depth {got['wow_depth_semitones']:.4f} st")
+    require(abs(got["actual_rpm"] - CW_RPM) <= 0.02 * CW_RPM,
+            f"cyclic-wow: {got['actual_rpm']} rpm")
+    return {**res, "actual_rpm": got["actual_rpm"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -965,8 +1487,10 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    # the host too: the card-vs-CPU phases compare against its float32 BLAS
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
+          f"device {torch.cuda.get_device_name(0)}; host {platform.machine()}, "
+          f"{platform.processor() or 'processor not named'}")
     dev = resolve_device("cuda")
 
     # 2. build both libraries from the checkout, together: K1 and K2 (nvcc)
@@ -1049,16 +1573,7 @@ def main():
         raise RuntimeError("flutter did not drop below 0.2x the input's")
 
     # 5. the card's restore against the port's CPU path on a small take
-    small = wow_take(22050, 2.5, seed=1)
-    with tempfile.TemporaryDirectory() as tmp:
-        outs = []
-        for d in ("cuda", "cpu"):
-            src = os.path.join(tmp, f"{d}.wav")
-            wavfile.write(src, 22050, small)
-            outs.append(wavfile.read(rt.restore_file_fast(
-                src, fft_size=2048, fft_overlap=8, zeropad=2, sinc_quality=30,
-                device=d))[1])
-    compare_compacted(*outs, "cuda vs cpu (2.5 s, 22.05 kHz)")
+    card_vs_cpu_restore(rt)
 
     # 6. K2's plan entry against its plain version at the fused path's shape
     NLs = torch.full((n_frames,), NL, dtype=torch.int32, device=dev)
@@ -1083,7 +1598,17 @@ def main():
     batch = dropouts_batch_phase(dev, smi)
     tape, k1_tapesync = tapesync_phase(dev, smi)
 
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - started:.1f} s")
+    # 16-24. the spectral and analysis tools through the CLI
+    tools = {"difeq": difeq_phase(take, dev, smi), "expand": expand_phase(dev, smi),
+             "hpss": hpss_phase(take, dev, smi)}
+    tools["renoise"], k1_renoise = renoise_phase(take, dev, smi)
+    tools["humspeed"], k1_hum, k1_hum_stream = humspeed_phase(take, dev, smi)
+    tools.update({"pan": pan_phase(take, dev, smi),
+                  "decompress": decompress_phase(take, dev, smi),
+                  "group-delay": group_delay_phase(dev, smi),
+                  "cyclic-wow": cyclic_wow_phase(dev, smi)})
+
+    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - started:.1f} s")
     common = {"route": "cuda", "source": "pyaudiorestoration_tpu_torch/csrc/sinc_banded.cu"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
@@ -1099,18 +1624,26 @@ def main():
                               **k1_portable,
                               "tapesync": tape["k1 resample_ratio"] + tape["k1 run"],
                               "tapesync (resample_ratio)": tape["k1 resample_ratio"],
-                              "tapesync (run)": tape["k1 run"]},
+                              "tapesync (run)": tape["k1 run"],
+                              "renoise --noise (resample_ratio)":
+                                  tools["renoise"][f"noise_{RN_NOISE_SR}"]["k1_launches"],
+                              "humspeed (resample_ratio)": tools["humspeed"]["k1_launches"],
+                              "humspeed --stream (plan entry)":
+                                  tools["humspeed"]["k1_stream_launches"]},
          **{k: v for k, v in k1.items() if k not in keys},
          "grid_entry_at_sinc_resample": k1_resample,
          "grid_entry_at_tapesync_resample_ratio": k1_tapesync["resample_ratio"],
-         "grid_entry_at_tapesync_run": k1_tapesync["run"]},
+         "grid_entry_at_tapesync_run": k1_tapesync["run"],
+         "grid_entry_at_humspeed_resample_ratio": k1_hum,
+         "grid_entry_at_renoise_noise_resample": k1_renoise,
+         "plan_entry_at_humspeed_stream": k1_hum_stream},
         {"name": "sinc_banded_gathered", **common,
          "replaces": "pyaudiorestoration_tpu/kernels/sinc_pallas.py:350",
          "entry": "sinc_banded_gathered_plan_f32", "launches": k2_fused,
          **{k: k2[k] for k in keys},
          "launches_by_path": {"restore_fused_device xla": k2_fused},
          **{k: v for k, v in k2.items() if k not in keys}}],
-        "walls_s": {"heal": heal, "dropouts-batch": batch, "tapesync": tape}}))
+        "walls_s": {"heal": heal, "dropouts-batch": batch, "tapesync": tape, **tools}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

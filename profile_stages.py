@@ -1,8 +1,8 @@
 """Stage breakdown and device profile of the port's paths on one CUDA card,
 on chip_smoke's synthesized inputs.
 
-    python3 profile_stages.py [--path fast|fused|batch|stream|portable|heal|heuristic|tapesync]
-                              [--runs 5]
+    python3 profile_stages.py [--path fast|fused|batch|stream|portable|heal|heuristic|tapesync
+                                     |hpss|renoise|humspeed|expand] [--runs 5]
     python3 profile_stages.py --sass
 
 ``fast``: ``restore_file_fast`` (``respeed --fast``), file to file.
@@ -18,6 +18,17 @@ Peak, fft 1024/8/4, sinc 50), file to file.
 defaults: fft 1024/4, 12 bands, 3-12 kHz) on the 30 s take with 6 dips.
 ``tapesync``: ``tapesynch.align_files`` at the defaults on chip_smoke's
 60 s 44.1 kHz pair (the source 5 % fast and 60 ms late).
+``hpss``: ``hpss_tool.separate_file`` at the defaults (fft 2048/4, kernel
+31) on the 30 s take with chip_smoke's clicks.
+``renoise``: ``renoiser.process_file`` with ``--selection 0.5 1.5`` at the
+defaults (fft 1024/4, gain -40 dB) on the 30 s take.
+``humspeed``: ``analyze_hum`` and the in-memory ``resample_file`` (K1's grid
+entry, one launch a channel) on the take with chip_smoke's 1.5 % fast hum.
+``expand``: ``expander.expand_file`` at the defaults on chip_smoke's take
+with a stepped hiss floor (the entry reads the file twice, as JAX's).
+``heuristic``, ``hpss``, ``renoise``, ``humspeed`` and ``expand`` time the
+entry itself through its ``timings=`` dict; the other paths mark stages
+around the entry's own pieces.
 The fused paths run K1 (backend "pallas"), as the card's "auto" does; the
 streamed and portable paths run K1 through their own resamplers.  The sinc
 stage of every path includes its grids: K1's plan entry builds them.
@@ -45,10 +56,10 @@ import torch
 from scipy.io import wavfile
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (DRIFT, FFT, LONG_MINUTES, MAX_N, N_DIPS, N_DROPS, OVERLAP,
+from chip_smoke import (DRIFT, FFT, HUM, LONG_MINUTES, MAX_N, N_DIPS, N_DROPS, OVERLAP,
                         QUALITY, SECONDS, SR, TS_SECONDS, TS_SR, ZEROPAD, dips_take,
-                        dropout_take, long_wow_chunks, save_drop, tapesync_pair,
-                        wow_take, write_float_wav)
+                        dropout_take, hiss_take, long_wow_chunks, save_drop,
+                        tapesync_pair, wow_take, write_float_wav)
 
 HOP = FFT // OVERLAP
 
@@ -205,18 +216,15 @@ def heal_stages(src, drop, audio_io, dev):
     return s.done()
 
 
-HEURISTIC_STAGES = ("read_s", "spectrum_s", "heuristic_fac_s", "cascade_s", "write_s")
-
-
-def heuristic_stages(src, dev):
-    """One run of ``process_heuristic`` at the defaults; its own timings
-    (the cascade includes the download), in ms."""
-    from pyaudiorestoration_tpu_torch.pipelines import dropouts
-
+def entry_stages(entry):
+    """One run of ``entry(timings)``, a pipeline entry that fills its own
+    ``timings=`` dict (``utils.timing.Stages``: a synchronize before each
+    mark), in ms, in the entry's order."""
     timings = {}
     t0 = time.perf_counter()
-    dropouts.process_heuristic(src, stream=False, timings=timings, device=dev)
-    out = {k[:-2]: timings[k] * 1e3 for k in HEURISTIC_STAGES}
+    entry(timings)
+    torch.cuda.synchronize()
+    out = {k[:-2]: v * 1e3 for k, v in timings.items()}
     out["total"] = (time.perf_counter() - t0) * 1e3
     return out
 
@@ -312,7 +320,8 @@ def sass_report(so):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=["fast", "fused", "batch", "stream", "portable",
-                                       "heal", "heuristic", "tapesync"], default="fast")
+                                       "heal", "heuristic", "tapesync", "hpss", "renoise",
+                                       "humspeed", "expand"], default="fast")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--sass", action="store_true",
                     help="count the tap loops' instructions in the built kernels")
@@ -379,13 +388,13 @@ def main():
             src = os.path.join(tmp, "dips.wav")
             wavfile.write(src, SR, dips_take(SR, SECONDS, N_DIPS)[0])
 
-            def stages():
-                return heuristic_stages(src, dev)
-
-            def entry():
+            def entry(timings=None):
                 from pyaudiorestoration_tpu_torch.pipelines import dropouts
 
-                dropouts.process_heuristic(src, stream=False, device=dev)
+                dropouts.process_heuristic(src, stream=False, device=dev, timings=timings)
+
+            def stages():
+                return entry_stages(entry)
         elif args.path == "tapesync":
             ref, src = os.path.join(tmp, "ref.wav"), os.path.join(tmp, "src.wav")
             for path, x in zip((ref, src), tapesync_pair(TS_SR, TS_SECONDS)):
@@ -398,6 +407,33 @@ def main():
                 from pyaudiorestoration_tpu_torch.pipelines import tapesynch
 
                 tapesynch.align_files(ref, src, device=dev)
+        elif args.path in ("hpss", "renoise", "humspeed", "expand"):
+            src = os.path.join(tmp, "take.wav")
+            x = hiss_take(SR, SECONDS) if args.path == "expand" else take.copy()
+            if args.path == "hpss":
+                x[np.arange(SR // 4, len(x) - 1, SR // 4)] += 0.8
+            elif args.path == "humspeed":
+                t = np.arange(len(x)) / SR
+                x += sum(0.05 * np.sin(2 * np.pi * f * t) for f in HUM)[:, None].astype(
+                    np.float32)
+            wavfile.write(src, SR, x)
+
+            def entry(timings=None):
+                from pyaudiorestoration_tpu_torch.pipelines import (expander, hpss_tool,
+                                                                     humspeed, renoiser)
+
+                kw = dict(stream=False, device=dev, timings=timings)
+                if args.path == "hpss":
+                    hpss_tool.separate_file(src, **kw)
+                elif args.path == "renoise":
+                    renoiser.process_file(src, selection=(0.5, 1.5), **kw)
+                elif args.path == "humspeed":
+                    humspeed.resample_file(src, **kw)
+                else:
+                    expander.expand_file(src, **kw)
+
+            def stages():
+                return entry_stages(entry)
         elif args.path == "portable":
             src = os.path.join(tmp, "take.wav")
             wavfile.write(src, SR, take)

@@ -5,6 +5,15 @@
     python -m pyaudiorestoration_tpu_torch tapesync <ref> <src> | <x.tapesync> [...]
     python -m pyaudiorestoration_tpu_torch heal <audio> --project x.drop | --detect ...
     python -m pyaudiorestoration_tpu_torch dropouts-batch <audio>... [--mode MaxMono]
+    python -m pyaudiorestoration_tpu_torch difeq <src> <ref> -o out [...]
+    python -m pyaudiorestoration_tpu_torch expand <audio> [...]
+    python -m pyaudiorestoration_tpu_torch hpss <audio>... [...]
+    python -m pyaudiorestoration_tpu_torch renoise <audio> --noise n.wav | --selection T0 T1
+    python -m pyaudiorestoration_tpu_torch humspeed <audio> [--analyze-only]
+    python -m pyaudiorestoration_tpu_torch pan <audio> --project x.pan
+    python -m pyaudiorestoration_tpu_torch decompress <src> <ref> [--sync]
+    python -m pyaudiorestoration_tpu_torch group-delay <ref> <src> [...]
+    python -m pyaudiorestoration_tpu_torch cyclic-wow <audio> [--rpm 45]
 
 ``respeed`` has every form of ``pyaudiorestoration_tpu``'s subcommand, with
 its flags and defaults plus ``--device``: the portable trackers (``--mode``,
@@ -12,11 +21,14 @@ its flags and defaults plus ``--device``: the portable trackers (``--mode``,
 ``.spd`` project replay, the device pipeline (``--fast``) and the streamed
 two-pass tier (``--stream``, or automatically for takes over 1 GiB
 decoded).  ``respeed-batch --tier fused`` restores independent takes on one
-card; ``--tier fixed`` exits with a "not ported yet" error.  ``tapesync``
-(``--compare`` is not ported yet), ``heal`` and ``dropouts-batch`` take the
-JAX package's flags and defaults (its cli.py:93-137) plus ``--device``; the
-spectral tools stream past 1 GiB decoded or with ``--stream``.  The global
-``--flac-out [BITS]`` / ``--flac-fast`` write FLAC instead of float WAV.
+card; ``--tier fixed`` exits with a "not ported yet" error.  Every other
+subcommand takes the JAX package's flags and defaults (its cli.py:93-269)
+plus ``--device``; ``tapesync --compare`` and ``renoise --preview`` (both
+need the image writers) exit 2 "not ported yet".  The file-to-file tools
+stream past 1 GiB decoded or with ``--stream``.  The global ``--flac-out
+[BITS]`` / ``--flac-fast`` write FLAC instead of float WAV.  ``--device
+cuda`` (the default) raises without a card; ``--device cpu`` runs the
+plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -136,6 +148,118 @@ def build_parser():
     sp.add_argument("--stream", action="store_true",
                     help="force the blockwise larger-than-memory path")
     _add_device_arg(sp)
+
+    sp = sub.add_parser("difeq", help="differential EQ (difeq)")
+    sp.add_argument("source")
+    sp.add_argument("reference")
+    sp.add_argument("-o", "--output", required=True, help="output base path (.txt)")
+    sp.add_argument("--channels", default="L+R", choices=["L+R", "L", "R"])
+    sp.add_argument("--smoothing", type=int, default=50)
+    sp.add_argument("--strength", type=float, default=1.0)
+    sp.add_argument("--keep-gain", action="store_true")
+    sp.add_argument("--highpass", type=float, default=0)
+    sp.add_argument("--rolloff-start", type=float, default=21000)
+    sp.add_argument("--rolloff-end", type=float, default=22000)
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("expand", help="spectral expander (expander)")
+    sp.add_argument("input")
+    sp.add_argument("--channels", default="L+R", choices=["L+R", "L", "R", "Mean"])
+    sp.add_argument("--band-lower", type=float, default=13000)
+    sp.add_argument("--band-upper", type=float, default=17000)
+    sp.add_argument("--clip-lower", type=float, default=-120)
+    sp.add_argument("--clip-upper", type=float, default=-85)
+    sp.add_argument("--smoothing-s", type=float, default=0.11)
+    sp.add_argument("--transition", type=float, default=0)
+    sp.add_argument("--order", type=int, default=1)
+    sp.add_argument("--suffix", default="_decompressed")
+    sp.add_argument("--stream", action="store_true",
+                    help="force the blockwise larger-than-memory path")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("humspeed", help="hum-based speed analysis/correction")
+    sp.add_argument("input")
+    sp.add_argument("--base-hum", type=int, default=50)
+    sp.add_argument("--harmonies", type=int, default=2)
+    sp.add_argument("--tolerance", type=float, default=8)
+    sp.add_argument("--analyze-only", action="store_true")
+    sp.add_argument("--stream", action="store_true",
+                    help="force the blockwise larger-than-memory resample")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("pan", help="pan matching (pypan)")
+    sp.add_argument("input")
+    sp.add_argument("--project", required=True, help=".pan project with markers")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("renoise", help="renoiser / denoiser")
+    sp.add_argument("input")
+    sp.add_argument("--noise", help="noise profile audio file")
+    sp.add_argument("--selection", nargs=2, type=float, metavar=("T0", "T1"),
+                    help="noise span inside the input")
+    sp.add_argument("--gain", type=float, default=-40.0)
+    sp.add_argument("--overhead", type=float, default=0.0)
+    sp.add_argument("--preview", metavar="PNG",
+                    help="before/after masked-spectrogram image (not ported yet)")
+    _add_fft_args(sp, 1024, 4)
+    sp.add_argument("--suffix", default=None,
+                    help="output suffix (default: ' fft=<size>')")
+    sp.add_argument("--stream", action="store_true",
+                    help="force the blockwise larger-than-memory path")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("hpss", help="harmonic/percussive separation")
+    sp.add_argument("inputs", nargs="+")
+    sp.add_argument("--kernel", type=int, default=31)
+    sp.add_argument("--power", type=float, default=2.0)
+    sp.add_argument("--margin", type=float, default=1.0)
+    _add_fft_args(sp, 2048, 4)
+    sp.add_argument("--suffix", default="")
+    sp.add_argument("--stream", action="store_true",
+                    help="force the blockwise larger-than-memory path")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("decompress", help="transfer a reference's dynamics "
+                        "onto a compressed source (decompressor)")
+    sp.add_argument("source", help="dynamically compressed file to fix")
+    sp.add_argument("reference", help="file with the target dynamics")
+    sp.add_argument("--hop", type=int, default=32)
+    sp.add_argument("--rms-size", type=int, default=512,
+                    help="RMS window size (samples)")
+    sp.add_argument("--lower", type=float, default=80.0)
+    sp.add_argument("--upper", type=float, default=9000.0)
+    sp.add_argument("--smoothing", type=float, default=0.08,
+                    metavar="SEC", help="gain-curve smoothing (seconds)")
+    sp.add_argument("--sync", action="store_true",
+                    help="cross-correlate the RMS envelopes and align first")
+    sp.add_argument("--stream", action="store_true",
+                    help="force the blockwise larger-than-memory path")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("group-delay", help="per-band delay & correlation "
+                        "between two takes (group_delay diagnostics)")
+    sp.add_argument("reference")
+    sp.add_argument("source")
+    sp.add_argument("--lower", type=float, default=10.0)
+    sp.add_argument("--upper", type=float, default=2000.0)
+    sp.add_argument("--bandwidth", type=float, default=45.0)
+    sp.add_argument("--order", type=int, default=1)
+    sp.add_argument("--min-corr", type=float, default=0.6,
+                    help="report only bands above this correlation")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("cyclic-wow", help="once-per-rotation wow analysis "
+                        "of a record transfer (cyclic_wow)")
+    sp.add_argument("input")
+    sp.add_argument("--rpm", type=float, default=45.0, help="nominal record speed")
+    sp.add_argument("--f0", type=float, default=700.0, help="tone to trace")
+    sp.add_argument("--fft-size", type=int, default=16384)
+    sp.add_argument("--tolerance", type=float, default=0.1,
+                    help="cycle-length search range (fraction of nominal)")
+    sp.add_argument("--curve-out", metavar="TXT",
+                    help="write the averaged cycle curve (one value per "
+                         "frame, semitones) to a text file")
+    _add_device_arg(sp)
     return p
 
 
@@ -147,7 +271,10 @@ def main(argv=None) -> int:
         audio_io.set_output_format("flac", bits=args.flac_out,
                                    level=0 if args.flac_fast else 1)
     run = {"respeed": _respeed, "respeed-batch": _respeed_batch, "tapesync": _tapesync,
-           "heal": _heal, "dropouts-batch": _dropouts_batch}[args.cmd]
+           "heal": _heal, "dropouts-batch": _dropouts_batch, "difeq": _difeq,
+           "expand": _expand, "humspeed": _humspeed, "pan": _pan, "renoise": _renoise,
+           "hpss": _hpss, "decompress": _decompress, "group-delay": _group_delay,
+           "cyclic-wow": _cyclic_wow}[args.cmd]
     try:
         out = run(args)
     except NotImplementedError as e:
@@ -260,6 +387,117 @@ def _dropouts_batch(args):
                 path, args.fft_size, args.fft_overlap, suffix=args.suffix,
                 stream=stream, device=args.device))
     return outs
+
+
+def _difeq(args):
+    from .pipelines import difeq
+
+    base = args.output[:-4] if args.output.endswith(".txt") else args.output
+    _, _, paths = difeq.difeq_files(
+        args.source, args.reference, base, channel_mode=args.channels,
+        device=args.device, smoothing=args.smoothing, strength=args.strength,
+        keep_gain=args.keep_gain, highpass=args.highpass,
+        rolloff_start=args.rolloff_start, rolloff_end=args.rolloff_end)
+    return paths
+
+
+def _expand(args):
+    from .pipelines import expander
+
+    return [expander.expand_file(
+        args.input, channel_mode=args.channels, band_lower=args.band_lower,
+        band_upper=args.band_upper, clip_lower=args.clip_lower,
+        clip_upper=args.clip_upper, smoothing_s=args.smoothing_s,
+        transition=args.transition, order=args.order, suffix=args.suffix,
+        stream=True if args.stream else "auto", device=args.device)]
+
+
+def _humspeed(args):
+    from .pipelines import humspeed
+
+    matches = humspeed.analyze_hum(args.input, base_hum=args.base_hum,
+                                   num_harmonies=args.harmonies,
+                                   tolerance=args.tolerance, device=args.device)
+    if args.analyze_only or not matches:
+        return {"matches": matches}
+    out = humspeed.resample_file(args.input, ratio=matches[-1]["ratio"],
+                                 stream=True if args.stream else "auto",
+                                 device=args.device)
+    return {"matches": matches, "outputs": [out]}
+
+
+def _pan(args):
+    from .pipelines import pan
+    from .utils import project
+
+    proj = project.Project.load(args.project)
+    return [pan.pan_file(args.input, proj.marker_list("markers"), device=args.device)]
+
+
+def _renoise(args):
+    if args.preview:
+        _not_ported("renoise --preview (models/viz)")
+    from .pipelines import renoiser
+
+    return [renoiser.process_file(
+        args.input, noise_path=args.noise,
+        selection=tuple(args.selection) if args.selection else None,
+        gain=args.gain, overhead=args.overhead, fft_size=args.fft_size,
+        fft_overlap=args.fft_overlap, suffix=args.suffix,
+        stream=True if args.stream else "auto", device=args.device)]
+
+
+def _hpss(args):
+    from .pipelines import hpss_tool
+
+    outs = []
+    for path in args.inputs:
+        outs.extend(hpss_tool.separate_file(
+            path, args.fft_size, args.fft_overlap, args.kernel, args.power, args.margin,
+            suffix=args.suffix, stream=True if args.stream else "auto",
+            device=args.device))
+    return outs
+
+
+def _decompress(args):
+    from .pipelines import decompressor
+
+    return [decompressor.decompress_file(
+        args.source, args.reference, stream=True if args.stream else "auto",
+        device=args.device, hop=args.hop, sz=args.rms_size, lower=args.lower,
+        upper=args.upper, smoothing_sec=args.smoothing, do_sync=args.sync)]
+
+
+def _group_delay(args):
+    from .pipelines import group_delay
+    from .utils import audio_io
+
+    ref, sr, _ = audio_io.read_file(args.reference)
+    src, sr2, _ = audio_io.read_file(args.source)
+    if sr != sr2:
+        raise ValueError("Both files must have the same sample rate")
+    bands = group_delay.band_delays(
+        ref[:, 0], src[:, 0], sr, f_lower=args.lower, f_upper=args.upper,
+        bandwidth=args.bandwidth, order=args.order, min_corr=args.min_corr,
+        device=args.device)
+    return {"sr": sr, "bands": bands}
+
+
+def _cyclic_wow(args):
+    import numpy as np
+
+    from .pipelines import cyclic_wow
+    from .utils import audio_io
+
+    sig, sr, _ = audio_io.read_file(args.input)
+    res = cyclic_wow.analyze(sig, sr, rpm=args.rpm, f0=args.f0, fft_size=args.fft_size,
+                             tolerance=args.tolerance, device=args.device)
+    curve = np.asarray(res.pop("cycle_curve"))
+    res.pop("scan", None)
+    if args.curve_out:
+        np.savetxt(args.curve_out, 12.0 * (curve - np.mean(curve)))
+        res["curve_out"] = args.curve_out
+    return res
 
 
 def _not_ported(what: str):

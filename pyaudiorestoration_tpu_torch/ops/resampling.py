@@ -36,7 +36,7 @@ import torch
 from ..kernels.sinc_banded import sinc_banded
 from ..utils import audio_io
 from ..utils.device import as_device_tensor
-from ..utils.timing import log_duration
+from ..utils.timing import Stages, log_duration
 
 __all__ = [
     "speed_to_pos", "lag_to_pos", "sinc_resample", "linear_resample",
@@ -179,15 +179,21 @@ def _sinc_banded_blocks(sig, anchors, rel, fc, nt: int, drift: int):
 
 def sinc_resample(signal, sample_at, quality: int = 50, tile: int = 16384,
                   block: int = 512, max_band_drift: int = 192,
-                  device_out: bool = False, device="cuda"):
+                  device_out: bool = False, device="cuda", timings=None):
     """Windowed-sinc resample of a (time,) or (time, channels) signal at
     float64 positions.  ``quality`` is the reference's ``sinc_quality`` NT
     (resampling.py:21-27).  Returns float32 of len(sample_at) (and the
     channels): numpy, or with ``device_out=True`` a tensor left on the
     device.  ``signal``: a tensor (which keeps its device) or a host array
-    (uploaded to ``device``).  See the module docstring for the branches."""
+    (uploaded to ``device``).  See the module docstring for the branches.
+    ``timings``, a dict, receives the seconds of the upload, the host
+    positions and their layout, the sinc and the download
+    (``utils.timing.Stages``)."""
     n_out = len(sample_at)
+    stages = Stages(timings,
+                    signal.device if isinstance(signal, torch.Tensor) else device)
     sig = as_device_tensor(signal, device, torch.float32)
+    stages.mark("upload")
     was_1d = sig.dim() == 1
     if was_1d:
         sig = sig[:, None]
@@ -203,6 +209,7 @@ def sinc_resample(signal, sample_at, quality: int = 50, tile: int = 16384,
     if layout is not None:
         anchors, rel, fc_b, drift = layout
         anchors, rel, fc_b = (torch.as_tensor(v, device=dev) for v in (anchors, rel, fc_b))
+        stages.mark("positions")
         out = torch.stack([_sinc_banded_blocks(sig[:, c].contiguous(), anchors, rel,
                                                fc_b, int(quality), drift).reshape(-1)
                            for c in range(sig.shape[1])], dim=-1)[:n_out]
@@ -210,10 +217,13 @@ def sinc_resample(signal, sample_at, quality: int = 50, tile: int = 16384,
         pad = (-n_out) % tile
         args = [torch.as_tensor(np.pad(v, (0, pad), constant_values=c), device=dev)
                 for v, c in ((ind, 0), (shift, 0), (fc, 1.0))]
+        stages.mark("positions")
         out = torch.stack([_sinc_device(sig[:, c], *args, int(quality), int(tile))
                            for c in range(sig.shape[1])], dim=-1)[:n_out]
+    stages.mark("sinc")
     if not device_out:
         out = out.cpu().numpy()
+        stages.mark("download")
     return out[:, 0] if was_1d else out
 
 
@@ -245,22 +255,23 @@ def linear_resample(signal, sample_at, device="cuda"):
 
 
 def resample_ratio(signal, sr_from, sr_to, quality: int = 16, axis: int = 0,
-                   device_out: bool = False, device="cuda"):
+                   device_out: bool = False, device="cuda", timings=None):
     """Constant-ratio resampler (replaces resampy.resample usages); 1-D or
     2-D ``signal`` with time on ``axis``.  ``device_out=True`` keeps the
-    result on the device (see :func:`sinc_resample`)."""
+    result on the device, and ``timings`` receives its stages (see
+    :func:`sinc_resample`)."""
     ratio = float(sr_from) / float(sr_to)
     n_out = int(round(signal.shape[axis] / ratio))
     sample_at = np.arange(n_out, dtype=np.float64) * ratio
     if signal.ndim == 1:
         return sinc_resample(signal, sample_at, quality=quality,
-                             device_out=device_out, device=device)
+                             device_out=device_out, device=device, timings=timings)
     if isinstance(signal, torch.Tensor):
         moved = torch.movedim(signal, axis, 0)
     else:
         moved = np.moveaxis(np.asarray(signal), axis, 0)
     out = sinc_resample(moved, sample_at, quality=quality, device_out=device_out,
-                        device=device)
+                        device=device, timings=timings)
     return torch.movedim(out, 0, axis) if device_out else np.moveaxis(out, 0, axis)
 
 

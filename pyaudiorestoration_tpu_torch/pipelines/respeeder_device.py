@@ -917,6 +917,7 @@ def restore_file_streamed(audio_path, f0_hz=None, tolerance_st: float = 1.0,
         U = nt + drift
         max_n = int(plan["max_n"])
         T = len(plan["n"])
+        seg_tile = min(seg_tile, T)  # a take shorter than a tile pads no rows
         speeds32 = speeds.astype(np.float32)
         out_path = out_base + "." + audio_io.out_ext()
         # ---- pass 2: tile the segment axis, re-read input windows, append.

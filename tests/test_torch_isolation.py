@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of ``pyaudiorestoration_tpu_torch``,
 nor ``chip_smoke.py`` or ``profile_stages.py``, imports JAX or anything of the
-JAX package, and ``respeed --fast``, ``tapesync``, ``heal`` and
-``dropouts-batch`` run with ``--device cpu`` and both blocked."""
+JAX package, and ``respeed --fast``, ``tapesync``, ``heal``,
+``dropouts-batch`` and the nine spectral and analysis tools run with
+``--device cpu`` and both blocked (``renoise --preview`` exits 2, not ported
+yet)."""
 
 import ast
 import json
@@ -46,7 +48,7 @@ def test_imports_no_jax_nor_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
-_RUN_BLOCKED = """
+_BLOCK = """
 import importlib.abc, json, sys
 BLOCKED = ("jax", "jaxlib", "pyaudiorestoration_tpu")
 
@@ -61,11 +63,29 @@ for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[m]
 sys.meta_path.insert(0, Blocker())
 from pyaudiorestoration_tpu_torch import cli
-rc = cli.main(sys.argv[1:])
+"""
+_LOADED = """
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pyaudiorestoration_tpu.")))
-print(json.dumps({"rc": rc, "loaded": loaded}))
 """
+_RUN_BLOCKED = (_BLOCK + "rc = cli.main(sys.argv[1:])\n" + _LOADED
+                + 'print(json.dumps({"rc": rc, "loaded": loaded}))\n')
+# several CLI commands in one process (one interpreter start): each its rc,
+# its last stdout line and its stderr (a traceback where it raised)
+_RUN_MANY_BLOCKED = _BLOCK + """
+import contextlib, io, traceback
+runs = []
+for argv in json.loads(sys.argv[1]):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli.main(argv)
+        except Exception:
+            rc = None
+            traceback.print_exc()
+    lines = out.getvalue().strip().splitlines()
+    runs.append({"rc": rc, "last": lines[-1] if lines else "", "err": err.getvalue()})
+""" + _LOADED + 'print(json.dumps({"runs": runs, "loaded": loaded}))\n'
 
 
 def test_respeed_fast_runs_with_the_jax_package_blocked(tmp_path):
@@ -92,18 +112,9 @@ def test_respeed_fast_runs_with_the_jax_package_blocked(tmp_path):
     assert abs(len(y) - len(sig)) < 0.02 * len(sig)
 
 
-def _run_blocked(argv, cwd):
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
-    r = subprocess.run([sys.executable, "-c", _RUN_BLOCKED, *argv, "--device", "cpu"],
-                       cwd=cwd, env=env, capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, r.stderr[-3000:]
-    lines = r.stdout.strip().splitlines()
-    assert json.loads(lines[-1]) == {"rc": 0, "loaded": []}
-    return json.loads(lines[-2])
-
-
-@pytest.mark.parametrize("cmd", ["tapesync", "heal", "dropouts-batch"])
-def test_spectral_tools_run_with_the_jax_package_blocked(tmp_path, cmd):
+def _spectral_inputs(tmp_path, cmd):
+    """A 4 s 8 kHz random walk with a dropout (and, for tapesync, a second
+    take 400 samples ahead); the command line and the outputs it writes."""
     sr = 8000
     rng = np.random.default_rng(5)
     base = np.cumsum(rng.standard_normal(4 * sr + 400)).astype(np.float32)
@@ -124,7 +135,119 @@ def test_spectral_tools_run_with_the_jax_package_blocked(tmp_path, cmd):
     else:
         argv = [cmd, str(src), "--mode", "MaxMono"]
         want = [str(tmp_path / "amax.wav"), str(tmp_path / "amin.wav")]
-    assert _run_blocked(argv, ROOT)["outputs"] == want
+    return argv, want, sr, len(x)
+
+
+SPECTRAL = ["tapesync", "heal", "dropouts-batch"]
+
+
+def _tool_inputs(tmp_path, sr=8000, seconds=4.0):
+    """Stereo noise with a hum and a tone (4 s at 8 kHz), its compressed
+    copy, a 44 rpm record's tone and a two-sample .pan project."""
+    from pyaudiorestoration_tpu_torch.models import markers as mk
+    from pyaudiorestoration_tpu_torch.utils import project
+
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    rng = np.random.default_rng(7)
+    hum = sum(0.05 * np.sin(2 * np.pi * f * 1.01 * t) for f in (50, 100, 150))
+    sig = 0.1 * rng.standard_normal(n) + hum + 0.3 * np.sin(2 * np.pi * 700 * t)
+    env = 0.2 + 0.6 * (np.sin(2 * np.pi * 0.5 * t) > 0)
+    paths = {}
+    for name, x in (("a", np.stack([sig, 0.8 * sig], -1)),
+                    ("b", np.stack([np.roll(sig, 9), 0.8 * np.roll(sig, 9)], -1)),
+                    ("c", np.stack([sig * env, sig * env], -1))):
+        paths[name] = str(tmp_path / f"{name}.wav")
+        wavfile.write(paths[name], sr, x.astype(np.float32))
+    speed = 1.0 + 0.01 * np.sin(2 * np.pi * 44 / 60 * np.arange(2 * n) / sr)
+    paths["rec"] = str(tmp_path / "rec.wav")
+    wavfile.write(paths["rec"], sr,
+                  np.sin(2 * np.pi * 700 * np.cumsum(speed) / sr).astype(np.float32))
+    paths["pan"] = str(tmp_path / "a.pan")
+    project.Project(".pan", {"fft_size": 512, "fft_overlap": 4}, {"markers": [
+        mk.PanSample((0.5, 100.0), (1.0, 3000.0), 0.7),
+        mk.PanSample((2.5, 100.0), (3.0, 3000.0), 1.2)]}).save(paths["pan"])
+    return paths
+
+
+TOOLS = {
+    "difeq": (["difeq", "{b}", "{a}", "-o", "{tmp}/eq.txt"],
+              ["eq.txt", "eq_L.txt", "eq_R.txt"]),
+    "expand": (["expand", "{a}", "--band-lower", "2000", "--band-upper", "3500"],
+               ["a_decompressed.wav"]),
+    "hpss": (["hpss", "{a}", "--fft-size", "512", "--kernel", "9"], ["a_H.wav", "a_P.wav"]),
+    "renoise": (["renoise", "{a}", "--selection", "0.5", "1.5"], ["a fft=1024.wav"]),
+    "humspeed": (["humspeed", "{a}", "--harmonies", "2"], None),
+    "pan": (["pan", "{a}", "--project", "{pan}"], ["a_out.wav"]),
+    "decompress": (["decompress", "{a}", "{c}"], ["a_decompressed.wav"]),
+    "group-delay": (["group-delay", "{a}", "{b}", "--upper", "1000"], []),
+    "cyclic-wow": (["cyclic-wow", "{rec}", "--fft-size", "4096"], []),
+    "renoise --preview": (["renoise", "{a}", "--selection", "0.5", "1.5", "--preview",
+                           "{tmp}/p.png"], None),
+}
+
+
+@pytest.fixture(scope="module")
+def blocked_runs(tmp_path_factory):
+    """Every subcommand below, each on its own inputs in its own directory,
+    through the CLI with ``--device cpu`` in one process with JAX and the
+    JAX package blocked: {name: (directory, run record)}."""
+    dirs, argvs = {}, []
+    for cmd in SPECTRAL:
+        d = dirs[cmd] = tmp_path_factory.mktemp(cmd)
+        argvs.append(_spectral_inputs(d, cmd)[0] + ["--device", "cpu"])
+    for cmd, (argv, _) in TOOLS.items():
+        d = dirs[cmd] = tmp_path_factory.mktemp(cmd.replace(" --", "_"))
+        paths = _tool_inputs(d)
+        argvs.append([a.format(tmp=d, **paths) for a in argv] + ["--device", "cpu"])
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    r = subprocess.run([sys.executable, "-c", _RUN_MANY_BLOCKED, json.dumps(argvs)],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    status = json.loads(r.stdout.strip().splitlines()[-1])
+    assert status["loaded"] == []
+    return {cmd: (dirs[cmd], run) for cmd, run in zip(dirs, status["runs"])}
+
+
+def _outputs(run):
+    assert run["rc"] == 0, run["err"][-3000:]
+    return json.loads(run["last"])
+
+
+@pytest.mark.parametrize("cmd", SPECTRAL)
+def test_spectral_tools_run_with_the_jax_package_blocked(blocked_runs, cmd):
+    tmp_path, run = blocked_runs[cmd]
+    _, want, sr, n = _spectral_inputs(tmp_path, cmd)
+    assert _outputs(run)["outputs"] == want
     for path in want:
         osr, y = wavfile.read(path)
-        assert osr == sr and np.all(np.isfinite(y)) and abs(len(y) - len(x)) < 0.02 * len(x)
+        assert osr == sr and np.all(np.isfinite(y)) and abs(len(y) - n) < 0.02 * n
+
+
+@pytest.mark.parametrize("cmd", [c for c in TOOLS if c != "renoise --preview"])
+def test_analysis_tools_run_with_the_jax_package_blocked(blocked_runs, cmd):
+    tmp_path, run = blocked_runs[cmd]
+    out = _outputs(run)
+    want = TOOLS[cmd][1]
+    if cmd == "humspeed":
+        ratio = out["matches"][-1]["ratio"]
+        assert ratio == pytest.approx(1 / 1.01, abs=2e-3)
+        want = ["a_resampled_%.3f.wav" % ((ratio - 1) * 100)]
+    assert out.get("outputs", []) == [str(tmp_path / w) for w in want]
+    for path in out.get("outputs", []):
+        if path.endswith(".wav"):
+            y = wavfile.read(path)[1]
+            assert np.all(np.isfinite(y)) and abs(len(y) - 32000) < 0.02 * 32000
+        else:
+            assert open(path).read().startswith("FilterCurve:")
+    if cmd == "group-delay":
+        lags = [b["lag_samples"] for b in out["bands"]]
+        assert len(lags) >= 3 and abs(np.median(lags) + 9) < 1
+    elif cmd == "cyclic-wow":
+        assert out["actual_rpm"] == pytest.approx(44.0, rel=0.02)
+
+
+def test_renoise_preview_exits_not_ported_with_the_jax_package_blocked(blocked_runs):
+    tmp_path, run = blocked_runs["renoise --preview"]
+    assert run["rc"] == 2 and "not ported yet" in run["err"]
+    assert not (tmp_path / "p.png").exists()
