@@ -57,17 +57,34 @@ zeropad 2, sinc quality 50):
        ``--sync``, each with ``--stream``), ``group-delay`` (a 60 s 44.1 kHz
        pair 21 samples apart) and ``cyclic-wow`` (a 60 s transfer of a
        44 rpm record)
+  25   ``view`` at its defaults (fft 1024, overlap 4, izo) with ``--trail`` on
+       the pilot, cold and warm: the 513 x 22,501 image, the traced curve
+       within 1 % of the pilot's frequency
+  26   the card's ``render_rgb`` against the port's CPU render of the same
+       magnitude (at most 1e-4 of pixels one table step apart), its device
+       time, the download and the host's PNG encoding
+  27   ``listen`` of the take and its ``respeed --fast`` output (16-bit WAV
+       payloads of the takes' lengths)
+  28   ``measure`` of that pair: flutter before and after (under 0.2x), SNR,
+       the spectral distance within 1e-3 dB of the CPU's
+  29   ``tapesync --compare out.html`` on phase 15's pair: K1's launches as
+       phase 15 counts, the red/green channels correlating above 0.99
+  30   ``doctor``: healthy, its probe's K1 launch (a child process) within
+       3e-5 of the plain version.  Where ``import matplotlib`` succeeds, the
+       PNG forms too (``viz.save_spectrogram``, ``tapesync --compare x.png``,
+       ``renoise --preview``); the script prints which ran
 
-Phases print on their own lines (13-24 beside the card's name and power
+Phases print on their own lines (13-30 beside the card's name and power
 limit); the line before the last is a JSON object with each kernel's
 launches on the main paths, its error against the plain version, its time,
-the plain version's, its bound and share of it, and the walls of phases
-13-24; the last line is ``{"ok": true, "device": {"platform": "gpu", "kind":
-..., "count": ...}}``.  Any failure raises and exits non-zero with no result
+the plain version's, its bound and share of it, the walls of phases 13-30
+and the matplotlib forms run; the last line is ``{"ok": true, "device":
+{"platform": "gpu", "kind": ..., "count": ...}}``.  Any failure raises and exits non-zero with no result
 line.  Imports no JAX.
 """
 
 import contextlib
+import importlib.util
 import io
 import json
 import math
@@ -1470,6 +1487,240 @@ def cyclic_wow_phase(dev, smi):
     return {**res, "actual_rpm": got["actual_rpm"]}
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-30: the user-facing surface (view, listen, measure, the compare
+# page, doctor)
+# ---------------------------------------------------------------------------
+
+VIEW_FFT, VIEW_HOP = 1024, 256  # view's defaults (fft 1024, overlap 4)
+STEP_SHARE = 1e-4  # card vs CPU render: share of pixels one table step apart
+
+
+def page_parts(path):
+    """(meta, markers, decoded (h, w, 3) uint8 image) of a viewer page."""
+    import base64
+    import re
+    import zlib
+
+    page = open(path, encoding="utf-8").read()
+    meta = json.loads(re.search(r"const META = (\{.*?\});", page).group(1))
+    markers = json.loads(re.search(r"const MARKERS = (\[.*?\]);", page).group(1))
+    png = base64.b64decode(re.search(r'base64,([A-Za-z0-9+/=]+)"', page).group(1))
+    w, h = struct.unpack(">II", png[16:24])
+    i = png.index(b"IDAT") + 4
+    n = struct.unpack(">I", png[i - 8:i - 4])[0]
+    raw = np.frombuffer(zlib.decompress(png[i:i + n]), np.uint8).reshape(h, 1 + 3 * w)
+    return meta, markers, raw[:, 1:].reshape(h, w, 3)
+
+
+def table_steps(a, b, table):
+    """Share of pixels where a and b differ, and the largest table-index
+    distance between them (the two colors' nearest entries)."""
+    diff = np.any(a != b, -1)
+    index = {}
+    for i, c in enumerate(map(tuple, table)):
+        index.setdefault(c, []).append(i)
+    worst = 0
+    for pa, pb in zip(a[diff], b[diff]):
+        worst = max(worst, min(abs(i - j) for i in index[tuple(pa)]
+                               for j in index[tuple(pb)]))
+    return float(diff.mean()), worst
+
+
+def pilot_hz(t):
+    """wow_take's pilot frequency at times ``t``."""
+    return F0 * (1.0 + 0.008 * np.sin(2 * np.pi * 0.55 * t)
+                 + 0.0015 * np.sin(2 * np.pi * 6.3 * t + 1.0))
+
+
+def view_phase(take, dev, smi):
+    """Phases 25-26: ``view`` at its defaults (fft 1024, overlap 4, izo) with
+    ``--trail`` on the pilot of the 30 s take, cold and warm: the image is
+    513 x 22,501 and the traced curve within 1 % of the pilot's frequency;
+    then ``render_rgb`` on the card against the port's CPU render of the same
+    magnitude (at most 1e-4 of pixels, one table step), the card's render
+    time beside the CPU's and the bytes it downloads."""
+    from pyaudiorestoration_tpu_torch.models import viz_html
+    from pyaudiorestoration_tpu_torch.ops import fourier
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "take.wav"), os.path.join(tmp, "take.html")
+        wavfile.write(src, SR, take)
+        argv = ["view", src, "--trail", "0.5", str(F0), str(SECONDS - 0.5), str(F0), "-o",
+                out, "--device", str(dev)]
+        res = tool_walls("view --trail (30 s 192 kHz stereo, fft 1024/4)", argv, smi)
+        meta, markers, rgb = page_parts(out)
+        page_mb = os.path.getsize(out) / 1e6
+    n_frames = take.shape[0] // VIEW_HOP + 1
+    t, f = np.asarray(markers[0]["t"]), np.asarray(markers[0]["f"])
+    trail_err = float(np.max(np.abs(f / pilot_hz(t) - 1)))
+    print(f"view: image {rgb.shape} ({rgb.nbytes / 1e6:.1f} MB), page {page_mb:.1f} MB, "
+          f"traced {len(t)} frames, worst |f / pilot - 1| {trail_err:.5f} (tol 0.01)")
+    require(rgb.shape == (VIEW_FFT // 2 + 1, n_frames, 3) and meta["w"] == n_frames
+            and meta["h"] == VIEW_FFT // 2 + 1, f"view: image {rgb.shape}, meta {meta}")
+    require(len(t) > 0.9 * (SECONDS - 1) * SR / VIEW_HOP and trail_err <= 0.01,
+            f"view --trail: {len(t)} frames, worst relative error {trail_err}")
+
+    # 26. the card's render against the CPU's on the same magnitude
+    mag = fourier.get_mag(torch.as_tensor(take[:, 0].copy(), device=dev), VIEW_FFT,
+                          VIEW_HOP)
+    mag_cpu = mag.cpu()
+    card, _ = viz_html.render_rgb(mag, SR, VIEW_HOP, device=dev)
+    cpu, _ = viz_html.render_rgb(mag_cpu, SR, VIEW_HOP, device="cpu")
+    share, worst = table_steps(card, cpu, viz_html.cmap_table("izo"))
+    table = torch.as_tensor(viz_html.cmap_table("izo"), device=dev)
+    rows = viz_html.mel_rows(mag.shape[0], SR, mag.shape[0], 20.0)
+
+    def device_render():
+        norm = viz_html.norm_rows(mag, rows, -120, 0)
+        return table[torch.clamp((norm * 256).to(torch.int64), max=255)]
+
+    dev_ms = cuda_ms(device_render, 5)
+    card_s, _ = wall_s(lambda: viz_html.render_rgb(mag, SR, VIEW_HOP, device=dev), 3)
+    t0 = time.perf_counter()
+    viz_html.render_rgb(mag_cpu, SR, VIEW_HOP, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    viz_html._png_b64(card)
+    png_s = time.perf_counter() - t0
+    print(f"[{smi}] render_rgb, card vs the port's CPU render of the card's magnitude "
+          f"{tuple(mag.shape)}: {share:.2e} of pixels differ (tol {STEP_SHARE:.0e}), worst "
+          f"{worst} table step(s); device render {dev_ms:.3f} ms, render + download "
+          f"{card_s * 1e3:.3f} ms ({card.nbytes / 1e6:.1f} MB uint8 against "
+          f"{mag.numel() * 4 / 1e6:.1f} MB float32), CPU render {cpu_s * 1e3:.1f} ms; "
+          f"PNG deflate + base64 on the host {png_s * 1e3:.1f} ms")
+    require(share <= STEP_SHARE and worst <= 1,
+            f"render_rgb card vs CPU: {share} of pixels differ, worst {worst} steps")
+    return {**res, "trail_rel_err": trail_err, "render_share_differ": share,
+            "render_device_ms": dev_ms, "render_download_s": card_s, "render_cpu_s": cpu_s,
+            "png_b64_s": png_s}
+
+
+def listen_measure_phase(take, dev, smi):
+    """Phases 27-28: ``respeed --fast`` of the take, then ``listen`` of the
+    take and its output (two 30 s lanes: the WAVs are 16-bit copies, the
+    strips 160 rows), cold and warm; ``measure`` of the pair and of the
+    output: flutter before and after (under 0.2x, as phase 4 asks), SNR and
+    the spectral distance, that within 1e-3 dB of the CPU's."""
+    import base64
+
+    from pyaudiorestoration_tpu_torch.utils import audio_io, metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, page = os.path.join(tmp, "take.wav"), os.path.join(tmp, "aud.html")
+        wavfile.write(src, SR, take)
+        res_path = run_cli(["respeed", src, "--fast", "--device", str(dev), "--fft-size",
+                            str(FFT), "--fft-overlap", str(OVERLAP), "--zeropad",
+                            str(ZEROPAD), "--sinc-quality", str(QUALITY)])["outputs"][0]
+        listen = tool_walls("listen (take and its respeed --fast output)",
+                            ["listen", src, res_path, "-o", page, "--device", str(dev)], smi)
+        html = open(page, encoding="utf-8").read()
+        wavs = [base64.b64decode(p.split('"')[0]) for p in html.split("audio/wav;base64,")[1:]]
+        n_out = audio_io.read_file(res_path)[0].shape[0]
+        meas_argv = ["measure", src, res_path, "--device", str(dev)]
+        measure = tool_walls("measure (the pair: flutter, SNR, spectral distance)",
+                             meas_argv, smi)
+        pair = run_cli(meas_argv)
+        after = run_cli(["measure", res_path, "--device", str(dev)])["flutter"]
+        restored = audio_io.read_file(res_path)[0]
+        t0 = time.perf_counter()
+        cpu_dist = metrics.spectral_distance_db(take, restored, SR, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    want = [44 + 2 * 2 * n for n in (take.shape[0], n_out)]
+    print(f"listen: page {len(html) / 1e6:.1f} MB, WAV payloads {[len(w) for w in wavs]} "
+          f"bytes (want {want})")
+    print(f"measure: flutter {pair['flutter']} -> {after}, SNR {pair['snr_db']} dB, spectral "
+          f"distance {pair['spectral_distance_db']} dB (CPU {cpu_dist:.4f} dB in "
+          f"{cpu_s:.3f} s)")
+    require([len(w) for w in wavs] == want and html.count("image/png;base64,") == 2,
+            f"listen: WAV payloads {[len(w) for w in wavs]}, want {want}")
+    require(after < 0.2 * pair["flutter"], f"measure: flutter {pair['flutter']} -> {after}")
+    # measure rounds to 1e-3 dB: the card within 1e-3 of the CPU, plus half a step
+    require(pair["snr_db"] is not None and abs(pair["spectral_distance_db"] - cpu_dist)
+            <= 1.5e-3, f"measure: {pair}, CPU spectral distance {cpu_dist}")
+    return ({**listen, "page_mb": len(html) / 1e6},
+            {**measure, "flutter_before": pair["flutter"], "flutter_after": after,
+             "snr_db": pair["snr_db"], "spectral_distance_db": pair["spectral_distance_db"]})
+
+
+def compare_phase(dev, smi, tape, mpl):
+    """Phase 29: ``tapesync --compare out.html`` on phase 15's pair, cold and
+    warm: K1's launches as in phase 15; the overlay's red (the reference)
+    and green (the aligned output) channels correlate above 0.99; with
+    matplotlib, ``--compare out.png`` too."""
+    ref, src_sig = tapesync_pair(TS_SR, TS_SECONDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        r, s = os.path.join(tmp, "ref.wav"), os.path.join(tmp, "src.wav")
+        out = os.path.join(tmp, "cmp.html")
+        wavfile.write(r, TS_SR, ref)
+        wavfile.write(s, TS_SR, src_sig)
+        res = tool_walls("tapesync --compare out.html (60 s 44.1 kHz pair)",
+                         ["tapesync", r, s, "--compare", out, "--device", str(dev)], smi,
+                         seconds=TS_SECONDS)
+        meta, _, rgb = page_parts(out)
+        if mpl:
+            png = os.path.join(tmp, "cmp.png")
+            run_cli(["tapesync", r, s, "--compare", png, "--device", str(dev)])
+            require(os.path.getsize(png) > 1000, "tapesync --compare x.png wrote no image")
+    corr = float(np.corrcoef(rgb[..., 0].ravel().astype(np.float64),
+                             rgb[..., 1].ravel().astype(np.float64))[0, 1])
+    want = tape["k1 resample_ratio"] + tape["k1 run"]
+    print(f"tapesync --compare: image {rgb.shape}, red/green correlation {corr:.5f} "
+          f"(want > 0.99); K1 launches {res['k1_launches']} (phase 15: {want})"
+          + ("; --compare x.png written" if mpl else ""))
+    require(rgb.shape == (VIEW_FFT // 2 + 1, meta["w"], 3) and corr > 0.99,
+            f"tapesync --compare: image {rgb.shape}, correlation {corr}")
+    require(res["k1_launches"] == want,
+            f"tapesync --compare: K1 launches {res['k1_launches']}, phase 15 {want}")
+    return {**res, "red_green_corr": corr}
+
+
+def doctor_phase(smi):
+    """Phase 30: ``doctor`` on the card: healthy (exit 0), with its probe's
+    K1 launch (in the child process) within 3e-5 of the plain version."""
+    from pyaudiorestoration_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["doctor"])
+    wall = time.perf_counter() - t0
+    rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+    d = rep.get("device", {})
+    print(f"[{smi}] doctor: healthy {rep['healthy']} in {wall:.2f} s; codec "
+          f"{rep['native_codec']}; kernels {rep['kernels']}; device probe {d}")
+    require(rc == 0 and rep["healthy"] and d.get("status") == "ok" and d.get("k1_launches") == 1
+            and d.get("k1_max_abs_err", 1.0) <= TOL, f"doctor: {rep}")
+    return {"wall_s": wall, "k1_launches": d["k1_launches"],
+            "k1_max_abs_err": d["k1_max_abs_err"]}
+
+
+def matplotlib_forms(take, dev, mpl):
+    """The PNG figures where ``import matplotlib`` succeeds (``mpl``):
+    ``viz``'s spectrogram of the take and ``renoise --preview``
+    (``tapesync --compare x.png`` runs in phase 29).  Returns the forms run."""
+    if not mpl:
+        print("matplotlib is absent: the PNG forms (viz figures, tapesync --compare x.png, "
+              "renoise --preview) did not run")
+        return []
+    from pyaudiorestoration_tpu_torch.models import viz
+    from pyaudiorestoration_tpu_torch.ops import fourier
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "take.wav")
+        wavfile.write(src, SR, take)
+        mag = fourier.get_mag(torch.as_tensor(take[:, 0].copy(), device=dev), VIEW_FFT,
+                              VIEW_HOP)
+        fig = viz.save_spectrogram(os.path.join(tmp, "s.png"), mag, SR, VIEW_HOP)
+        preview = run_cli(["renoise", src, "--selection", "0.5", "1.5", "--preview",
+                           os.path.join(tmp, "p.png"), "--device", str(dev)])["preview"]
+        sizes = [os.path.getsize(p) for p in (fig, preview)]
+    require(min(sizes) > 1000, f"matplotlib figures of {sizes} bytes")
+    forms = ["viz.save_spectrogram", "tapesync --compare x.png", "renoise --preview"]
+    print(f"matplotlib forms run: {', '.join(forms)}")
+    return forms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -1608,7 +1859,15 @@ def main():
                   "group-delay": group_delay_phase(dev, smi),
                   "cyclic-wow": cyclic_wow_phase(dev, smi)})
 
-    print(f"chip_smoke: phases 1-24 in {time.perf_counter() - started:.1f} s")
+    # 25-30. the user-facing surface through the CLI
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    surface = {"view": view_phase(take, dev, smi)}
+    surface["listen"], surface["measure"] = listen_measure_phase(take, dev, smi)
+    surface["tapesync --compare"] = compare_phase(dev, smi, tape, mpl)
+    surface["doctor"] = doctor_phase(smi)
+    forms = matplotlib_forms(take, dev, mpl)
+
+    print(f"chip_smoke: phases 1-30 in {time.perf_counter() - started:.1f} s")
     common = {"route": "cuda", "source": "pyaudiorestoration_tpu_torch/csrc/sinc_banded.cu"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
@@ -1629,7 +1888,11 @@ def main():
                                   tools["renoise"][f"noise_{RN_NOISE_SR}"]["k1_launches"],
                               "humspeed (resample_ratio)": tools["humspeed"]["k1_launches"],
                               "humspeed --stream (plan entry)":
-                                  tools["humspeed"]["k1_stream_launches"]},
+                                  tools["humspeed"]["k1_stream_launches"],
+                              "tapesync --compare":
+                                  surface["tapesync --compare"]["k1_launches"],
+                              "doctor's probe (its child process)":
+                                  surface["doctor"]["k1_launches"]},
          **{k: v for k, v in k1.items() if k not in keys},
          "grid_entry_at_sinc_resample": k1_resample,
          "grid_entry_at_tapesync_resample_ratio": k1_tapesync["resample_ratio"],
@@ -1643,7 +1906,9 @@ def main():
          **{k: k2[k] for k in keys},
          "launches_by_path": {"restore_fused_device xla": k2_fused},
          **{k: v for k, v in k2.items() if k not in keys}}],
-        "walls_s": {"heal": heal, "dropouts-batch": batch, "tapesync": tape, **tools}}))
+        "walls_s": {"heal": heal, "dropouts-batch": batch, "tapesync": tape, **tools,
+                    **surface},
+        "matplotlib_forms": forms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,7 @@
 on chip_smoke's synthesized inputs.
 
     python3 profile_stages.py [--path fast|fused|batch|stream|portable|heal|heuristic|tapesync
-                                     |hpss|renoise|humspeed|expand] [--runs 5]
+                                     |hpss|renoise|humspeed|expand|view|listen] [--runs 5]
     python3 profile_stages.py --sass
 
 ``fast``: ``restore_file_fast`` (``respeed --fast``), file to file.
@@ -26,6 +26,12 @@ defaults (fft 1024/4, gain -40 dB) on the 30 s take.
 entry, one launch a channel) on the take with chip_smoke's 1.5 % fast hum.
 ``expand``: ``expander.expand_file`` at the defaults on chip_smoke's take
 with a stepped hiss floor (the entry reads the file twice, as JAX's).
+``view``: the ``view`` CLI at its defaults (fft 1024/4, izo) with ``--trail``
+on the pilot of the 30 s take, split into read, STFT, trace, the device
+render with its download, and the page (PNG deflate, base64, write).
+``listen``: the ``listen`` CLI on the take and a copy at half level, split
+into read, the two strips (STFT, render, PNG) and the two 16-bit WAVs
+with their base64, and the write.
 ``heuristic``, ``hpss``, ``renoise``, ``humspeed`` and ``expand`` time the
 entry itself through its ``timings=`` dict; the other paths mark stages
 around the entry's own pieces.
@@ -42,7 +48,10 @@ its idle share of the wall, and the device time by kernel.  Imports no JAX.
 """
 
 import argparse
+import contextlib
 import inspect
+import io
+import json
 import os
 import re
 import shutil
@@ -56,12 +65,14 @@ import torch
 from scipy.io import wavfile
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (DRIFT, FFT, HUM, LONG_MINUTES, MAX_N, N_DIPS, N_DROPS, OVERLAP,
-                        QUALITY, SECONDS, SR, TS_SECONDS, TS_SR, ZEROPAD, dips_take,
-                        dropout_take, hiss_take, long_wow_chunks, save_drop,
-                        tapesync_pair, wow_take, write_float_wav)
+from chip_smoke import (DRIFT, F0, FFT, HUM, LONG_MINUTES, MAX_N, N_DIPS, N_DROPS,
+                        OVERLAP, QUALITY, SECONDS, SR, TS_SECONDS, TS_SR, VIEW_FFT,
+                        VIEW_HOP, ZEROPAD, dips_take, dropout_take, hiss_take,
+                        long_wow_chunks, save_drop, tapesync_pair, wow_take,
+                        write_float_wav)
 
 HOP = FFT // OVERLAP
+VIEW_TRAIL = ((0.5, F0), (SECONDS - 0.5, F0))  # chip_smoke's view --trail
 
 
 class Stages:
@@ -252,6 +263,46 @@ def tapesync_stages(ref, src, audio_io, dev):
     return s.done()
 
 
+def view_stages(src, audio_io, dev):
+    """One run of ``view --trail`` on the pilot at its defaults, split into
+    the CLI's stages."""
+    from pyaudiorestoration_tpu_torch.models import trackers, viz_html
+    from pyaudiorestoration_tpu_torch.ops import fourier
+
+    s = Stages()
+    sig, sr, _ = audio_io.read_file(src)
+    s.mark("read")
+    mag = fourier.get_mag(sig[:, 0], VIEW_FFT, VIEW_HOP, device=dev)
+    s.mark("upload + STFT")
+    times, freqs = trackers.trace("Peak", mag, sig, VIEW_TRAIL, VIEW_FFT, VIEW_HOP, sr,
+                                  device=dev)
+    s.mark("trace")
+    rgb, meta = viz_html.render_rgb(mag, sr, VIEW_HOP, device=dev)
+    s.mark("render + download")
+    viz_html._write_page(src[:-4] + ".html", "take", meta, json.dumps(
+        [{"t": list(map(float, times)), "f": list(map(float, freqs)), "color": "#ff5050"}]),
+        rgb)
+    s.mark("page")
+    return s.done()
+
+
+def listen_stages(paths, audio_io, dev):
+    """One run of ``listen`` on two takes, split into its stages."""
+    from pyaudiorestoration_tpu_torch.models import audition
+
+    s = Stages()
+    takes = [audio_io.read_file(p)[0] for p in paths]
+    s.mark("read")
+    strips = [audition._strip_png(x, SR, device=dev) for x in takes]
+    s.mark("strips")
+    wavs = [audition._wav16_b64(x, SR) for x in takes]
+    s.mark("WAVs + base64")
+    with open(paths[0][:-4] + ".html", "w", encoding="utf-8") as f:
+        f.write("".join(strips + wavs))
+    s.mark("write")
+    return s.done()
+
+
 def device_profile(fn):
     """One profiled run of ``fn``: wall, device busy time and idle share, and
     the device time by kernel."""
@@ -321,7 +372,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=["fast", "fused", "batch", "stream", "portable",
                                        "heal", "heuristic", "tapesync", "hpss", "renoise",
-                                       "humspeed", "expand"], default="fast")
+                                       "humspeed", "expand", "view", "listen"],
+                    default="fast")
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--sass", action="store_true",
                     help="count the tap loops' instructions in the built kernels")
@@ -434,6 +486,33 @@ def main():
 
             def stages():
                 return entry_stages(entry)
+        elif args.path == "view":
+            src = os.path.join(tmp, "take.wav")
+            wavfile.write(src, SR, take)
+
+            def stages():
+                return view_stages(src, audio_io, dev)
+
+            def entry():
+                from pyaudiorestoration_tpu_torch import cli
+
+                trail = [str(v) for p in VIEW_TRAIL for v in p]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(["view", src, "--trail", *trail, "--device", str(dev)])
+        elif args.path == "listen":
+            paths = [os.path.join(tmp, "a.wav"), os.path.join(tmp, "b.wav")]
+            wavfile.write(paths[0], SR, take)
+            wavfile.write(paths[1], SR, 0.5 * take)
+
+            def stages():
+                return listen_stages(paths, audio_io, dev)
+
+            def entry():
+                from pyaudiorestoration_tpu_torch import cli
+
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(["listen", *paths, "-o", os.path.join(tmp, "aud.html"),
+                              "--device", str(dev)])
         elif args.path == "portable":
             src = os.path.join(tmp, "take.wav")
             wavfile.write(src, SR, take)

@@ -2,7 +2,7 @@
 
     python -m pyaudiorestoration_tpu_torch respeed <audio|project.spd> [...] [--device cuda]
     python -m pyaudiorestoration_tpu_torch respeed-batch <audio>... [--device cuda]
-    python -m pyaudiorestoration_tpu_torch tapesync <ref> <src> | <x.tapesync> [...]
+    python -m pyaudiorestoration_tpu_torch tapesync <ref> <src> | <x.tapesync> [--compare x.html]
     python -m pyaudiorestoration_tpu_torch heal <audio> --project x.drop | --detect ...
     python -m pyaudiorestoration_tpu_torch dropouts-batch <audio>... [--mode MaxMono]
     python -m pyaudiorestoration_tpu_torch difeq <src> <ref> -o out [...]
@@ -14,6 +14,10 @@
     python -m pyaudiorestoration_tpu_torch decompress <src> <ref> [--sync]
     python -m pyaudiorestoration_tpu_torch group-delay <ref> <src> [...]
     python -m pyaudiorestoration_tpu_torch cyclic-wow <audio> [--rpm 45]
+    python -m pyaudiorestoration_tpu_torch view <audio> [-o x.html] [--trail T F ...]
+    python -m pyaudiorestoration_tpu_torch listen <audio> [<restored>] [-o audition.html]
+    python -m pyaudiorestoration_tpu_torch measure <audio> [<other>] [--metric ...]
+    python -m pyaudiorestoration_tpu_torch doctor [--no-device]
 
 ``respeed`` has every form of ``pyaudiorestoration_tpu``'s subcommand, with
 its flags and defaults plus ``--device``: the portable trackers (``--mode``,
@@ -21,14 +25,16 @@ its flags and defaults plus ``--device``: the portable trackers (``--mode``,
 ``.spd`` project replay, the device pipeline (``--fast``) and the streamed
 two-pass tier (``--stream``, or automatically for takes over 1 GiB
 decoded).  ``respeed-batch --tier fused`` restores independent takes on one
-card; ``--tier fixed`` exits with a "not ported yet" error.  Every other
-subcommand takes the JAX package's flags and defaults (its cli.py:93-269)
-plus ``--device``; ``tapesync --compare`` and ``renoise --preview`` (both
-need the image writers) exit 2 "not ported yet".  The file-to-file tools
-stream past 1 GiB decoded or with ``--stream``.  The global ``--flac-out
-[BITS]`` / ``--flac-fast`` write FLAC instead of float WAV.  ``--device
-cuda`` (the default) raises without a card; ``--device cpu`` runs the
-plain PyTorch path.
+card; ``--tier fixed`` exits with a "not ported yet" error, as does
+``bench``.  Every other subcommand takes the JAX package's flags and
+defaults (its cli.py:93-279) plus ``--device``.  ``view``, ``listen`` and
+``tapesync --compare x.html`` write self-contained HTML pages whose images
+are rendered on the device; ``tapesync --compare x.png`` and ``renoise
+--preview`` draw matplotlib figures and need matplotlib.  ``doctor`` exits
+2 when unhealthy.  The file-to-file tools stream past 1 GiB decoded or with
+``--stream``.  The global ``--flac-out [BITS]`` / ``--flac-fast`` write
+FLAC instead of float WAV.  ``--device cuda`` (the default) raises without
+a card; ``--device cpu`` runs the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ def _add_device_arg(p):
 
 
 def build_parser():
+    from .models.viz_html import CMAPS
+
     p = argparse.ArgumentParser(prog="pyaudiorestoration_tpu_torch",
                                 description="audio restoration on PyTorch/CUDA")
     p.add_argument("--flac-out", nargs="?", const=24, type=int, default=None,
@@ -115,7 +123,9 @@ def build_parser():
     sp.add_argument("--save-project", action="store_true",
                     help="write lag markers to <source>.tapesync (GUI Save parity)")
     sp.add_argument("--compare", metavar="PNG_OR_HTML",
-                    help="overlay of reference vs aligned output (not ported yet)")
+                    help="write a red/green overlay of reference vs aligned "
+                         "output (the GUI's 2-source compare view); a .html "
+                         "target gets the interactive pan/zoom viewer")
     _add_device_arg(sp)
 
     sp = sub.add_parser("heal", help="dropout healing (dropout_healer)")
@@ -200,7 +210,8 @@ def build_parser():
     sp.add_argument("--gain", type=float, default=-40.0)
     sp.add_argument("--overhead", type=float, default=0.0)
     sp.add_argument("--preview", metavar="PNG",
-                    help="before/after masked-spectrogram image (not ported yet)")
+                    help="write a before/after masked-spectrogram image via "
+                         "the re-mask-only fast path (no audio output)")
     _add_fft_args(sp, 1024, 4)
     sp.add_argument("--suffix", default=None,
                     help="output suffix (default: ' fft=<size>')")
@@ -260,6 +271,44 @@ def build_parser():
                     help="write the averaged cycle curve (one value per "
                          "frame, semitones) to a text file")
     _add_device_arg(sp)
+
+    sp = sub.add_parser("view", help="interactive HTML spectrogram viewer")
+    sp.add_argument("input")
+    sp.add_argument("-o", "--output", default=None, help="output .html (default <input>.html)")
+    _add_fft_args(sp, 1024, 4)
+    sp.add_argument("--channel", type=int, default=0)
+    sp.add_argument("--cmap", default="izo", choices=CMAPS)
+    sp.add_argument("--trail", type=float, nargs="+", default=None,
+                    metavar="T F", help="overlay a traced Peak curve from this trail")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("listen", help="self-contained HTML audition page "
+                        "(playback cursor + A/B, the GUI AudioWidget headless)")
+    sp.add_argument("inputs", nargs="+", help="one or two audio files (A/B)")
+    sp.add_argument("-o", "--output", default="audition.html")
+    sp.add_argument("--start", type=float, default=0.0, help="start seconds")
+    sp.add_argument("--seconds", type=float, default=60.0,
+                    help="max embedded duration")
+    _add_device_arg(sp)
+
+    sp = sub.add_parser("measure", help="quality metrics (flutter / SNR / spectral distance)")
+    sp.add_argument("input")
+    sp.add_argument("compare_to", nargs="?", default=None,
+                    help="second file for SNR / spectral distance")
+    sp.add_argument("--metric", default="all",
+                    choices=["all", "flutter", "snr", "spectral"])
+    _add_device_arg(sp)
+
+    sub.add_parser("bench", help="run the benchmark (not ported yet)")
+
+    sp = sub.add_parser("doctor", help="bounded environment/device health "
+                        "checks (codec, kernel build, device runtime)")
+    sp.add_argument("--device-timeout", type=float, default=120.0,
+                    help="seconds before declaring the device runtime wedged")
+    sp.add_argument("--no-device", action="store_true",
+                    help="skip the device probe (codec/kernel-build checks only)")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device the probe checks: cuda (default) or cpu")
     return p
 
 
@@ -274,13 +323,16 @@ def main(argv=None) -> int:
            "heal": _heal, "dropouts-batch": _dropouts_batch, "difeq": _difeq,
            "expand": _expand, "humspeed": _humspeed, "pan": _pan, "renoise": _renoise,
            "hpss": _hpss, "decompress": _decompress, "group-delay": _group_delay,
-           "cyclic-wow": _cyclic_wow}[args.cmd]
+           "cyclic-wow": _cyclic_wow, "view": _view, "listen": _listen,
+           "measure": _measure, "bench": _bench, "doctor": _doctor}[args.cmd]
     try:
         out = run(args)
     except NotImplementedError as e:
         print(f"error: not ported yet: {e}", file=sys.stderr)
         return 2
     print(json.dumps(out if isinstance(out, dict) else {"outputs": out}))
+    if args.cmd == "doctor":
+        return 0 if out["healthy"] else 2
     return 0
 
 
@@ -324,8 +376,6 @@ def _respeed_batch(args):
 
 
 def _tapesync(args):
-    if args.compare:
-        _not_ported("tapesync --compare (models/viz, viz_html)")
     from .pipelines import tapesynch
     from .utils import project
 
@@ -339,7 +389,27 @@ def _tapesync(args):
         window_s=args.window_s, lower=args.lower, upper=args.upper,
         smoothing=args.smoothing, sinc_quality=args.sinc_quality,
         save_project=args.save_project, device=args.device)
-    return {"outputs": paths, "lags": [s.to_cfg() for s in samples]}
+    out = {"outputs": paths, "lags": [s.to_cfg() for s in samples]}
+    if args.compare:
+        from .ops import fourier
+        from .utils import audio_io
+
+        ref_sig, sr, _ = audio_io.read_file(ref)
+        out_sig, _, _ = audio_io.read_file(paths[0])
+        fft, hop = 1024, 256
+        mag_a = fourier.get_mag(ref_sig[:, 0], fft, hop, device=args.device)
+        mag_b = fourier.get_mag(out_sig[:, 0], fft, hop, device=args.device)
+        if args.compare.endswith(".html"):
+            from .models import viz_html
+
+            out["compare"] = viz_html.save_interactive_compare_html(
+                args.compare, mag_a, mag_b, sr, hop, device=args.device)
+        else:
+            from .models import viz
+
+            out["compare"] = viz.save_comparison(args.compare, mag_a, mag_b, sr, hop,
+                                                 device=args.device)
+    return out
 
 
 def _heal(args):
@@ -435,9 +505,10 @@ def _pan(args):
 
 
 def _renoise(args):
-    if args.preview:
-        _not_ported("renoise --preview (models/viz)")
     from .pipelines import renoiser
+
+    if args.preview:
+        return {"preview": _renoise_preview(args, renoiser)}
 
     return [renoiser.process_file(
         args.input, noise_path=args.noise,
@@ -498,6 +569,100 @@ def _cyclic_wow(args):
         np.savetxt(args.curve_out, 12.0 * (curve - np.mean(curve)))
         res["curve_out"] = args.curve_out
     return res
+
+
+def _renoise_preview(args, renoiser):
+    """The before/after masked-spectrogram figure (the re-mask-only path)."""
+    import matplotlib
+    matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+
+    from .models import viz
+    from .utils import audio_io
+
+    signal, sr, _ = audio_io.read_file(args.input)
+    pv = renoiser.RenoisePreview(signal, sr, args.fft_size, args.fft_overlap,
+                                 device=args.device)
+    if args.noise:
+        profile = renoiser.noise_profile_from_file(args.noise, sr, args.fft_size,
+                                                   args.fft_overlap, device=args.device)
+    elif args.selection:
+        profile = pv.noise_profile_from_selection(*args.selection)
+    else:
+        raise ValueError("preview needs --noise or --selection")
+    masked = pv.remask(profile, args.gain, overhead=args.overhead)
+    fig, axes = plt.subplots(2, 1, figsize=(12, 9))
+    viz.plot_spectrogram(pv.magnitude(), sr, pv.hop, ax=axes[0], device=args.device)
+    axes[0].set_title("original")
+    viz.plot_spectrogram(masked, sr, pv.hop, ax=axes[1], device=args.device)
+    axes[1].set_title(f"masked (gain {args.gain} dB)")
+    fig.savefig(args.preview, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return args.preview
+
+
+def _view(args):
+    import os
+
+    from .models import viz_html
+    from .ops import fourier
+    from .utils import audio_io
+
+    sig, sr, _ = audio_io.read_file(args.input)
+    hop = args.fft_size // args.fft_overlap
+    mag = fourier.get_mag(sig[:, args.channel], args.fft_size, hop, zeropad=args.zeropad,
+                          device=args.device)
+    markers = []
+    if args.trail:
+        from .models import trackers
+
+        pts = list(zip(args.trail[::2], args.trail[1::2]))
+        times, freqs = trackers.trace("Peak", mag, sig, pts, args.fft_size * args.zeropad,
+                                      hop, sr, device=args.device)
+        markers.append({"t": list(times), "f": list(freqs)})
+    out = args.output or (args.input.rsplit(".", 1)[0] + ".html")
+    viz_html.save_interactive_html(out, mag, sr, hop, markers=markers,
+                                   title=os.path.basename(args.input), cmap=args.cmap,
+                                   device=args.device)
+    return [out]
+
+
+def _listen(args):
+    import os
+
+    from .models import audition
+    from .utils import audio_io
+
+    takes = []
+    sr = None
+    for path in args.inputs:
+        sig, sr_i, _ = audio_io.read_file(path)
+        if sr is None:
+            sr = sr_i
+        elif sr_i != sr:
+            raise ValueError("all takes must share one sample rate")
+        takes.append((os.path.basename(path), sig[int(args.start * sr):]))
+    return [audition.save_audition_html(args.output, takes, sr,
+                                        title=" vs ".join(n for n, _ in takes),
+                                        max_seconds=args.seconds, device=args.device)]
+
+
+def _measure(args):
+    from .utils import metrics
+
+    return metrics.measure_files(args.input, args.compare_to, args.metric,
+                                 device=args.device)
+
+
+def _bench(args):
+    _not_ported("bench: the port's bench is ROADMAP queue 1 item 1")
+
+
+def _doctor(args):
+    from .utils.doctor import run_doctor
+
+    return run_doctor(device_timeout_s=args.device_timeout, skip_device=args.no_device,
+                      device=args.device)
 
 
 def _not_ported(what: str):

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: no module of ``pyaudiorestoration_tpu_torch``,
 nor ``chip_smoke.py`` or ``profile_stages.py``, imports JAX or anything of the
 JAX package, and ``respeed --fast``, ``tapesync``, ``heal``,
-``dropouts-batch`` and the nine spectral and analysis tools run with
-``--device cpu`` and both blocked (``renoise --preview`` exits 2, not ported
-yet)."""
+``dropouts-batch``, the nine spectral and analysis tools, ``renoise
+--preview`` and the user-facing surface (``view``, ``listen``, ``measure``,
+``doctor --no-device``, ``tapesync --compare x.html``) run with ``--device
+cpu`` and both blocked.  The surface runs with matplotlib blocked as well,
+where ``tapesync --compare x.png`` raises matplotlib's ImportError."""
 
 import ast
 import json
@@ -50,7 +52,7 @@ def test_imports_no_jax_nor_the_jax_package(path):
 
 _BLOCK = """
 import importlib.abc, json, sys
-BLOCKED = ("jax", "jaxlib", "pyaudiorestoration_tpu")
+BLOCKED = BLOCKED_NAMES
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -65,13 +67,16 @@ sys.meta_path.insert(0, Blocker())
 from pyaudiorestoration_tpu_torch import cli
 """
 _LOADED = """
-loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and (
-    m.split(".")[0] in ("jax", "jaxlib") or m.startswith("pyaudiorestoration_tpu.")))
+loaded = sorted(m for m, mod in sys.modules.items()
+                if mod is not None and m.split(".")[0] in BLOCKED)
 """
-_RUN_BLOCKED = (_BLOCK + "rc = cli.main(sys.argv[1:])\n" + _LOADED
+JAX_NAMES = ("jax", "jaxlib", "pyaudiorestoration_tpu")
+_RUN_BLOCKED = (_BLOCK.replace("BLOCKED_NAMES", repr(JAX_NAMES))
+                + "rc = cli.main(sys.argv[1:])\n" + _LOADED
                 + 'print(json.dumps({"rc": rc, "loaded": loaded}))\n')
 # several CLI commands in one process (one interpreter start): each its rc,
-# its last stdout line and its stderr (a traceback where it raised)
+# its last stdout line and its stderr (a traceback where it raised); the
+# blocked names replace BLOCKED_NAMES
 _RUN_MANY_BLOCKED = _BLOCK + """
 import contextlib, io, traceback
 runs = []
@@ -187,6 +192,39 @@ TOOLS = {
 }
 
 
+# the user-facing surface: argv, then the outputs (None: checked below)
+SURFACE = {
+    "view": (["view", "{a}", "--trail", "0.5", "700", "3.5", "700"], ["a.html"]),
+    "listen": (["listen", "{a}", "{b}", "-o", "{tmp}/aud.html"], ["aud.html"]),
+    "measure": (["measure", "{a}", "{b}"], None),
+    "doctor": (["doctor", "--no-device"], None),
+    "tapesync --compare": (["tapesync", "{a}", "{b}", "--windows", "4", "--window-s", "0.5",
+                            "--sinc-quality", "8", "--compare", "{tmp}/c.html"], None),
+}
+
+
+def _run_many(argvs, blocked):
+    """``_RUN_MANY_BLOCKED`` over ``argvs`` with ``blocked`` blocked: the
+    runs, after checking that none of them was loaded."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    script = _RUN_MANY_BLOCKED.replace("BLOCKED_NAMES", repr(blocked))
+    r = subprocess.run([sys.executable, "-c", script, json.dumps(argvs)],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    status = json.loads(r.stdout.strip().splitlines()[-1])
+    assert status["loaded"] == []
+    return status["runs"]
+
+
+def _surface_argvs(tmp_path_factory, dirs, prefix=""):
+    argvs = []
+    for cmd, (argv, _) in SURFACE.items():
+        d = dirs[prefix + cmd] = tmp_path_factory.mktemp(cmd.replace(" --", "_"))
+        paths = _tool_inputs(d)
+        argvs.append([a.format(tmp=d, **paths) for a in argv] + ["--device", "cpu"])
+    return argvs
+
+
 @pytest.fixture(scope="module")
 def blocked_runs(tmp_path_factory):
     """Every subcommand below, each on its own inputs in its own directory,
@@ -200,13 +238,22 @@ def blocked_runs(tmp_path_factory):
         d = dirs[cmd] = tmp_path_factory.mktemp(cmd.replace(" --", "_"))
         paths = _tool_inputs(d)
         argvs.append([a.format(tmp=d, **paths) for a in argv] + ["--device", "cpu"])
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
-    r = subprocess.run([sys.executable, "-c", _RUN_MANY_BLOCKED, json.dumps(argvs)],
-                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, r.stderr[-3000:]
-    status = json.loads(r.stdout.strip().splitlines()[-1])
-    assert status["loaded"] == []
-    return {cmd: (dirs[cmd], run) for cmd, run in zip(dirs, status["runs"])}
+    argvs += _surface_argvs(tmp_path_factory, dirs)
+    runs = _run_many(argvs, JAX_NAMES)
+    return {cmd: (dirs[cmd], run) for cmd, run in zip(dirs, runs)}
+
+
+@pytest.fixture(scope="module")
+def no_matplotlib_runs(tmp_path_factory):
+    """The surface again, with matplotlib blocked as well, and ``tapesync
+    --compare x.png``, which needs it."""
+    dirs = {}
+    argvs = _surface_argvs(tmp_path_factory, dirs)
+    d = dirs["tapesync --compare png"] = tmp_path_factory.mktemp("compare_png")
+    argvs.append([a.format(tmp=d, **_tool_inputs(d)) for a in SURFACE[
+        "tapesync --compare"][0]][:-1] + [str(d / "c.png"), "--device", "cpu"])
+    runs = _run_many(argvs, JAX_NAMES + ("matplotlib",))
+    return {cmd: (dirs[cmd], run) for cmd, run in zip(dirs, runs)}
 
 
 def _outputs(run):
@@ -248,6 +295,46 @@ def test_analysis_tools_run_with_the_jax_package_blocked(blocked_runs, cmd):
 
 
 def test_renoise_preview_exits_not_ported_with_the_jax_package_blocked(blocked_runs):
+    """``renoise --preview`` writes its figure (matplotlib is present here)."""
+    pytest.importorskip("matplotlib")
     tmp_path, run = blocked_runs["renoise --preview"]
-    assert run["rc"] == 2 and "not ported yet" in run["err"]
-    assert not (tmp_path / "p.png").exists()
+    assert _outputs(run) == {"preview": str(tmp_path / "p.png")}
+    with open(tmp_path / "p.png", "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+def _check_surface(runs, cmd):
+    tmp_path, run = runs[cmd]
+    out = _outputs(run)
+    want = SURFACE[cmd][1]
+    if want is not None:
+        assert out == {"outputs": [str(tmp_path / w) for w in want]}
+        page = (tmp_path / want[0]).read_text()
+        assert page.lower().startswith("<!doctype html>") and "base64," in page
+        if cmd == "view":
+            assert '"color": "#ff5050"' in page  # the traced curve
+    elif cmd == "measure":
+        assert set(out) == {"flutter", "snr_db", "spectral_distance_db"}
+        assert out["spectral_distance_db"] >= 0
+    elif cmd == "doctor":
+        assert out["healthy"] is True and "device" not in out
+    else:
+        assert out["compare"] == str(tmp_path / "c.html")
+        assert (tmp_path / "c.html").read_text().startswith("<!DOCTYPE html>")
+
+
+@pytest.mark.parametrize("cmd", list(SURFACE))
+def test_surface_runs_with_the_jax_package_blocked(blocked_runs, cmd):
+    _check_surface(blocked_runs, cmd)
+
+
+@pytest.mark.parametrize("cmd", list(SURFACE))
+def test_surface_runs_with_matplotlib_blocked(no_matplotlib_runs, cmd):
+    _check_surface(no_matplotlib_runs, cmd)
+
+
+def test_png_compare_raises_matplotlibs_import_error(no_matplotlib_runs):
+    tmp_path, run = no_matplotlib_runs["tapesync --compare png"]
+    assert run["rc"] is None
+    assert "ImportError: matplotlib is blocked" in run["err"]
+    assert not (tmp_path / "c.png").exists()

@@ -8,8 +8,8 @@ magnitude), ``process_file`` within 1e-5, the blockwise ``process`` within
 1e-4 of the whole take in the interior (tests/test_streaming_tools.py:
 278-289), the streamed file within 2e-7 of the in-memory one in the
 interior (tests/test_streaming_tools.py:50-62), ``sniff_offset`` at JAX's
-index, ``RenoisePreview``, and the ``renoise`` CLI (``--preview`` exits
-2)."""
+index, ``RenoisePreview``, and the ``renoise`` CLI (``--preview`` writes
+its before/after figure where matplotlib is present)."""
 
 import json
 
@@ -219,10 +219,20 @@ def test_renoise_cli_matches_jax(tmp_path, capsys, extra):
 
 
 def test_renoise_preview_is_not_ported(tmp_path, capsys):
+    """``--preview`` writes the figure (``--selection`` and ``--noise``), and
+    needs one of them, as in the JAX package."""
+    pytest.importorskip("matplotlib")
     path = _write(tmp_path / "r.wav", _noisy_tone(SR))
-    rc = cli_t.main(["renoise", path, "--selection", "0.1", "0.5", "--preview",
-                     str(tmp_path / "p.png"), "--device", "cpu"])
-    assert rc == 2 and "not ported yet" in capsys.readouterr().err
+    noise = _write(tmp_path / "n.wav", _noisy_tone(SR // 2, seed=9) * 0.02)
+    for i, src in enumerate([["--selection", "0.1", "0.5"], ["--noise", noise]]):
+        png = str(tmp_path / f"p{i}.png")
+        rc = cli_t.main(["renoise", path, *src, "--preview", png, "--device", "cpu"])
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rc == 0 and out == {"preview": png}
+        with open(png, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    with pytest.raises(ValueError, match="preview needs --noise or --selection"):
+        cli_t.main(["renoise", path, "--preview", png, "--device", "cpu"])
 
 
 def test_cuda_default_raises_without_a_card(tmp_path):

@@ -246,10 +246,22 @@ def test_tapesync_cli_and_projects_match_jax(tmp_path, capsys):
 
 
 def test_tapesync_compare_is_not_ported(tmp_path, capsys):
+    """``--compare``: a ``.html`` target gets the interactive overlay of the
+    reference against the aligned output, anything else the matplotlib
+    figure (where matplotlib is present)."""
     r, s = _files(tmp_path)
-    assert cli_t.main(["tapesync", r, s, "--compare", str(tmp_path / "c.png"),
-                       "--device", "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    for target in ("c.html", "c.png"):
+        if target.endswith(".png"):
+            pytest.importorskip("matplotlib")
+        path = str(tmp_path / target)
+        assert cli_t.main(["tapesync", r, s, "--windows", "6", "--window-s", "0.5",
+                           "--sinc-quality", "20", "--compare", path, "--device",
+                           "cpu"]) == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert out["compare"] == path and out["outputs"] == [s[:-4] + "_res.wav"]
+        with open(path, "rb") as f:
+            head = f.read(8)
+        assert head == (b"<!DOCTYP" if target == "c.html" else b"\x89PNG\r\n\x1a\n")
 
 
 def test_cuda_default_raises_without_a_card(tmp_path):
