@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi   # phase 31 under NCCL alone, 2+ cards
 
 Builds the port's two libraries from the checkout, in parallel: kernels K1
 and K2 (the banded windowed-sinc resampler,
@@ -74,13 +75,38 @@ zeropad 2, sinc quality 50):
        PNG forms too (``viz.save_spectrogram``, ``tapesync --compare x.png``,
        ``renoise --preview``); the script prints which ran
 
-Phases print on their own lines (13-30 beside the card's name and power
+The mesh tier (``parallel/``) over ``torch.distributed`` ranks, each phase
+printing the mesh's backend:
+
+  31   ``restore_fused_sharded`` on phase 8's 8 takes (rows padded for the
+       time axis with their reflect continuation, per-take ``lengths``):
+       one rank in this process under NCCL (1 x 1), then 1 x 4 and 2 x 2
+       in one spawned world of four ranks sharing the card under gloo, and
+       where there are two cards or more, NCCL over up to four of them
+       (else the script says it skipped that run).  K1 ("pallas") and K2
+       ("xla") launch once a rank a call; every row is bit-equal to its solo
+       ``restore_fused_device`` run; K1's and K2's plan entries against
+       their plain versions at each rank's shard; the walls beside
+       ``restore_fused_takes``'; the halo, carry and limb exchanges
+  32   ``restore_file_sharded`` (2 x 2: the channels on the files axis, one
+       shared curve) on the stereo take, against phase 7's output
+  33   ``respeed-batch --tier fixed`` on three 10 s takes (a rank a card):
+       flutter under 0.5x; ``restore_step`` with the windowed sinc on the
+       1 x 4 mesh: K2's grid entry once a rank, flutter under 0.6x, the
+       entry against its plain version at that shape
+  34   ``lag_resample_file_sharded`` (2 x 2) on phase 15's ratio-corrected
+       source and lag curve against tapesync's own export; K2's grid entry
+       at that shape; the tool shards at 1 x 4 (STFT, iSTFT, HPSS, renoise,
+       centre of gravity, adaptive) against the port's dense functions
+
+Phases print on their own lines (13-34 beside the card's name and power
 limit); the line before the last is a JSON object with each kernel's
-launches on the main paths, its error against the plain version, its time,
-the plain version's, its bound and share of it, the walls of phases 13-30
-and the matplotlib forms run; the last line is ``{"ok": true, "device":
-{"platform": "gpu", "kind": ..., "count": ...}}``.  Any failure raises and exits non-zero with no result
-line.  Imports no JAX.
+launches on the main paths (the mesh's summed over its ranks), its error
+against the plain version, its time, the plain version's, its bound and
+share of it, at every shape, the walls of phases 13-34 and the matplotlib
+forms run; the last line is ``{"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}``.  Any failure raises and exits non-zero with
+no result line.  Imports no JAX.
 """
 
 import contextlib
@@ -940,7 +966,7 @@ def tapesync_phase(dev, smi):
 
     ref, src_sig = tapesync_pair(TS_SR, TS_SECONDS)
     seen = {"ratio": [], "batched": 0, "fallback": 0, "k1 resample_ratio": 0, "k1 run": 0,
-            "samples": None}
+            "samples": None, "lag_curve": None}
     calls = []  # sinc_resample's (C, n) signal, positions and nt in the first run
     real = {"ratio": ts.estimate_speed_ratio, "batch": correlation.find_delay_batch,
             "window": ts.correlate_sources, "align": ts.auto_align,
@@ -960,7 +986,7 @@ def tapesync_phase(dev, smi):
 
     def align(*a, **k):
         out = real["align"](*a, **k)
-        seen["samples"] = out[0]
+        seen["samples"], seen["lag_curve"] = out[0], out[1]
         return out
 
     def sinc(signal, sample_at, **k):
@@ -1031,8 +1057,9 @@ def tapesync_phase(dev, smi):
         raise RuntimeError(f"tapesync: sinc_resample called at nt {[c[2] for c in calls]}")
     k1 = {name: k1_grid_check(sig, pos, f"tapesync's {name}", nt=nt)
           for name, (sig, pos, nt) in zip(("resample_ratio", "run"), calls)}
+    export = (calls[1][0].cpu().numpy(), np.asarray(first["lag_curve"], np.float64))
     return {"cold_s": cold, "warm_s": warm, "ratio": first["ratio"][0],
-            "lag_err_s": lag_err, "k1 resample_ratio": n_rr, "k1 run": n_run}, k1
+            "lag_err_s": lag_err, "k1 resample_ratio": n_rr, "k1 run": n_run}, k1, export
 
 
 # ---------------------------------------------------------------------------
@@ -1721,10 +1748,623 @@ def matplotlib_forms(take, dev, mpl):
     return forms
 
 
+# ---------------------------------------------------------------------------
+# Phases 31-34: the mesh tier (parallel/) over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+MESH_SHAPES = ((1, 4), (2, 2))  # the four-rank meshes, ranks sharing the card (gloo)
+TOOL_FFT, TOOL_HOP = 4096, 1024
+
+
+def rank_timer(dev):
+    """``cuda_ms`` on a card, None on the CPU (a rehearsal times nothing)."""
+    return cuda_ms if dev.type == "cuda" else (lambda fn, reps, inner=1: None)
+
+
+def kernel_vs_plain(what, dev, entry, plain, args, taps, nbytes, rows, timed=True):
+    """A kernel entry against its plain version on ``args``: max|d| (held to
+    TOL) and, where ``timed``, both times, the bound and its share."""
+    got, ref = entry(*args), plain(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not err <= TOL:
+        raise RuntimeError(f"{what}: the kernel disagrees with its plain version: {err}")
+    rec = {"max_abs_err": err, "rows": rows, "taps": taps, "bytes": nbytes}
+    if timed:
+        t = rank_timer(dev)
+        ms = [t(lambda: entry(*args), 10, inner=10)]
+        plain_ms = t(lambda: plain(*args), 3)
+        ms.append(t(lambda: entry(*args), 10, inner=10))
+        bound_ms, bound_by = bound(taps, nbytes)
+        ms = statistics.median(ms) if ms[0] is not None else None
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms if ms else None, library_ms=None)
+    return rec
+
+
+def sync_wall(mesh, fn):
+    """Seconds of ``fn()`` on the mesh: every rank starts together and the
+    wall ends when the last rank's card is done."""
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize()
+    mesh.barrier()
+    return time.perf_counter() - t0, out
+
+
+def mesh_batch(sr, seconds, n_time):
+    """Phase 8's 8-take batch from the take's channel 0, rows padded to the
+    time axis with the reflect continuation (``load_batch(reflect_tail=)``),
+    with the takes' lengths, the band limits and the band."""
+    from pyaudiorestoration_tpu_torch.parallel import batch as pb
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+
+    mono = wow_take(sr, seconds)[:, 0]
+    hop, n = FFT // OVERLAP, len(mono)
+    N = -(-(n + FFT) // (n_time * hop)) * (n_time * hop)
+    xb = np.zeros((8, N), np.float32)
+    for i in range(8):
+        xb[i, :n] = mono * np.float32(0.5 + 0.06 * i)
+        pb.reflect_continue(xb[i], n, FFT)
+    NLv, NUv = rt._band_limits(rt._probe_f0(mono, sr), 1.0, FFT, ZEROPAD, sr)
+    F = N // hop + 1
+    return xb, [n] * 8, np.full(F, NLv, np.int32), np.full(F, NUv, np.int32), (NLv - 1,
+                                                                              NUv + 1)
+
+
+def fused_mesh_rank(dev, shapes, sr, seconds, timed=True):
+    """One rank of phase 31: for each (files, time) mesh of ``shapes``,
+    ``restore_fused_sharded`` on the 8-take batch with K1 ("pallas") and K2
+    ("xla"), each kernel's launches on this rank, the walls, K1's and K2's
+    plan entries against their plain versions at this rank's shard shape
+    (timed on rank 0 while the others wait), the halo and carry exchanges;
+    rank 0 also checks every gathered row against its solo run."""
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.parallel import mesh as pm
+    from pyaudiorestoration_tpu_torch.parallel import sharded as ps
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+
+    hop, out = FFT // OVERLAP, {}
+    solos = None
+    for nf, nt_ in shapes:
+        mesh = pm.Mesh(nf, nt_, dev)
+        xb, lengths, NL, NU, band = mesh_batch(sr, seconds, nt_)
+        xs = pm.shard_time_batch(mesh, xb)
+        kw = dict(band=band, lengths=lengths)
+        rec = {"backend": mesh.backend, "rank_device": str(dev),
+               "shard": list(xs.shape)}
+        grids = {}
+        for backend in ("pallas", "xla"):
+            def run(backend=backend):
+                return ps.restore_fused_sharded(mesh, xs, NL, NU, FFT, hop, ZEROPAD, MAX_N,
+                                                QUALITY, DRIFT, backend=backend, **kw)
+            reset_launches(kb)
+            cold, res = sync_wall(mesh, run)
+            rec[f"{backend}_launches"] = list(launches(kb))
+            warm = [sync_wall(mesh, run)[0] for _ in range(3)]
+            rec[f"{backend}_cold_s"], rec[f"{backend}_warm_s"] = cold, warm
+            grids[backend] = res
+        rec["k1_vs_k2"] = float((grids["pallas"][0] - grids["xla"][0]).abs().max())
+        padded = pm.gather_time_batch(mesh, grids["pallas"][0])
+        nn = pm.gather_time_batch(mesh, grids["pallas"][1])
+        del grids
+        # the kernels at this rank's shard shape
+        p = ps.fused_sharded_plan(mesh, xs, NL, NU, FFT, hop, ZEROPAD, MAX_N, QUALITY,
+                                  DRIFT, band=band, lengths=lengths)
+        flat = rt._flatten_takes(p["ext"], p["speeds"], p["nn"], p["anchors"],
+                                 p["base_frac"], MAX_N, QUALITY, DRIFT)
+        sig_flat, s_lo, s_hi, nn_f, bi_f, bf_f = flat
+        rows, outputs = int(nn_f.shape[0]), int(nn_f.sum())
+        U = QUALITY + DRIFT
+        buf = kb.gather_windows(sig_flat, bi_f, MAX_N + 2 * U, U)
+        checks = (("k1_plan_entry", kb.sinc_banded_plan, kb.sinc_banded_plan_plain,
+                   (sig_flat, bi_f, s_lo, s_hi, nn_f, bf_f, MAX_N, QUALITY, DRIFT),
+                   sig_flat.numel() * 4 + rows * 4 * 5),
+                  ("k2_plan_entry", kb.sinc_banded_gathered_plan,
+                   kb.sinc_banded_gathered_plan_plain,
+                   (buf, s_lo, s_hi, nn_f, bf_f, MAX_N, QUALITY, DRIFT),
+                   buf.numel() * 4 + rows * 4 * 4))
+        for name, entry, plain, args, in_bytes in checks:
+            # every rank checks its shard; rank 0 times while the others wait
+            rec[name] = kernel_vs_plain(f"{name} on the {nf}x{nt_} mesh", dev, entry,
+                                        plain, args, outputs * 2 * QUALITY,
+                                        in_bytes + rows * MAX_N * 4, rows,
+                                        timed=timed and mesh.rank == 0)
+            mesh.barrier()
+        del buf, flat, p
+        # the collectives alone: the tracking and sinc halos, the carry
+        pad = FFT // 2
+        halo = lambda: mesh.exchange("time", to_left=xs[..., :pad], to_right=xs[..., -pad:])
+        carry = lambda: mesh.all_gather(torch.zeros((2, xs.shape[0]), dtype=torch.float64,
+                                                    device=dev), "time")
+        limbs = lambda: mesh.psum(torch.zeros((3, xs.shape[0]), device=dev), "time")
+        for name, fn in (("halo_exchange", halo), ("carry_all_gather", carry),
+                         ("limbs_psum", limbs)):
+            fn()
+            rec[f"{name}_ms"] = statistics.median(
+                sync_wall(mesh, fn)[0] * 1e3 for _ in range(10))
+        if mesh.rank == 0:
+            if solos is None:  # the takes and their lengths are the same on every mesh
+                Fs = lengths[0] // hop + 1
+                solos = [rt.restore_fused_device(
+                    xb[i, :lengths[0]], NL[:Fs], NU[:Fs], FFT, hop, ZEROPAD, MAX_N,
+                    QUALITY, DRIFT, backend="pallas", band=band, device=dev).cpu().numpy()
+                    for i in range(8)]
+            T = solos[0].shape[0]
+            rec["rows_bit_equal"] = [bool(np.array_equal(padded[i, :T], s))
+                                     for i, s in enumerate(solos)]
+            rec["rows_max_abs_diff"] = [float(np.abs(padded[i, :T] - s).max())
+                                        for i, s in enumerate(solos)]
+            rec["grid"] = list(padded.shape)
+            rec["segments_counted"] = int(nn[:, :T].sum())
+        out[f"{nf}x{nt_}"] = rec
+    return out
+
+
+def restore_step_rank(dev, paths, timed=True):
+    """Phase 33's kernel half on a 1 x 4 mesh: ``restore_step`` with the
+    windowed sinc on the three takes cut to one length (K2's grid entry,
+    one launch a rank), its flutter, and the grid entry against its plain
+    version at that shape.  The drift halo grows past its default 256 to
+    the take's accumulated wow at 192 kHz (0.8 % at 0.55 Hz: +-444
+    samples)."""
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.parallel import batch as pb
+    from pyaudiorestoration_tpu_torch.parallel import mesh as pm
+    from pyaudiorestoration_tpu_torch.parallel import sharded as ps
+
+    hop, nt = FFT // OVERLAP, 16
+    mesh = pm.Mesh(1, 4, dev)
+    xb, sr, lengths = pb.load_batch(paths)
+    L = min(lengths) // (4 * hop) * (4 * hop)
+    xb, lengths = np.ascontiguousarray(xb[:, :L]), [L] * len(lengths)
+    xs = pm.shard_time_batch(mesh, xb)
+    kw = dict(n_fft=FFT, step=hop, interp="sinc", nt=nt)
+    reset_launches(kb)
+    wall, y = sync_wall(mesh, lambda: ps.restore_step(mesh, xs, F0, sr, **kw))
+    rec = {"backend": mesh.backend, "launches": list(launches(kb)), "cold_s": wall,
+           "warm_s": [sync_wall(mesh, lambda: ps.restore_step(mesh, xs, F0, sr, **kw))[0]
+                      for _ in range(3)]}
+    y = pm.gather_time_batch(mesh, y)
+    rel, up = ps.step_positions(mesh, xs, F0, sr, FFT, hop)
+    halo = ps.step_halo(mesh, rel, 256)
+    buf, bs, rel_s, in_seg, seg_drift = ps.step_windows(mesh, xs, rel, up, hop, 2.0, halo,
+                                                        nt)
+    rows = int(bs.shape[0])
+    rec["k2_grid_entry"] = kernel_vs_plain(
+        "K2's grid entry at restore_step's sinc shape", dev, kb.sinc_banded_gathered,
+        lambda *a: kb.sinc_shift_mac(a[0], *a[1:4], hop, a[4], a[5]),
+        (buf, bs, rel_s, in_seg, nt, seg_drift), int(in_seg.sum()) * 2 * nt,
+        buf.numel() * 4 + bs.numel() * 9 + bs.numel() * 4, rows,
+        timed=timed and mesh.rank == 0)
+    rec["k2_grid_entry"]["drift"] = seg_drift
+    rec["drift_halo"] = halo
+    mesh.barrier()
+    if mesh.rank == 0:
+        rec["flutter"] = [(tone_stability(xb[i, :L].astype(np.float64), sr),
+                           tone_stability(y[i, :L].astype(np.float64), sr))
+                          for i, L in enumerate(lengths)]
+    return rec
+
+
+def stereo_lag_rank(dev, take_path, f0, export, timed=True):
+    """Phases 32 and 34's file halves in the four-rank world:
+    ``restore_file_sharded`` on the stereo take (a 2 x 2 mesh, the channels
+    on the files axis) and ``lag_resample_file_sharded`` on phase 15's
+    ratio-corrected source and lag curve; each with K1's or K2's launches on
+    this rank."""
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.parallel import batch as pb
+    from pyaudiorestoration_tpu_torch.parallel import mesh as pm
+    from pyaudiorestoration_tpu_torch.parallel import sharded as ps
+    from pyaudiorestoration_tpu_torch.utils import audio_io
+
+    rec = {}
+    reset_launches(kb)
+    t0 = time.perf_counter()
+    out = pb.restore_file_sharded(take_path, f0_hz=f0, fft_size=FFT, fft_overlap=OVERLAP,
+                                  zeropad=ZEROPAD, sinc_quality=QUALITY, drift=DRIFT,
+                                  backend="pallas", device="cuda" if dev.type == "cuda"
+                                  else "cpu")
+    rec["file"] = {"output": out, "launches": list(launches(kb)),
+                   "wall_s": time.perf_counter() - t0}
+    src_path, st_s, lg_s = export
+    reset_launches(kb)
+    t0 = time.perf_counter()
+    out = pb.lag_resample_file_sharded(src_path, st_s, lg_s, sinc_quality=QUALITY,
+                                       device="cuda" if dev.type == "cuda" else "cpu")
+    rec["lag"] = {"output": out, "launches": list(launches(kb)),
+                  "wall_s": time.perf_counter() - t0}
+    # K2's grid entry at lag_resample_sharded's shape: this rank's windows
+    mesh = pm.Mesh(2, 2, dev)
+    src, sr_src, _ = audio_io.read_file(src_path)
+    nm = -(-len(src) // (2 * 256)) * (2 * 256)
+    xs = pm.shard_time_batch(mesh, np.pad(src.T, ((0, 0), (0, nm - len(src)))))
+    buf, bs, rel, in_seg = ps.lag_windows(mesh, xs, np.asarray(st_s) * sr_src,
+                                          np.asarray(lg_s) * sr_src, nt=QUALITY)
+    rows = int(bs.shape[0])
+    rec["lag"]["k2_grid_entry"] = kernel_vs_plain(
+        "K2's grid entry at lag_resample_sharded's shape", dev, kb.sinc_banded_gathered,
+        lambda *a: kb.sinc_shift_mac(a[0], *a[1:4], 256, a[4], a[5]),
+        (buf, bs, rel, in_seg, QUALITY, 32), rows * 256 * 2 * QUALITY,
+        buf.numel() * 4 + bs.numel() * 13, rows, timed=timed and mesh.rank == 0)
+    rec["lag"]["k2_grid_entry"]["drift"] = 32
+    mesh.barrier()
+    return rec
+
+
+def tools_rank(dev, sr, seconds):
+    """Phase 34's tool shards on a 1 x 4 mesh against the port's dense
+    functions, on the take's channel 0 (fft 4096, hop 1024): the STFT, the
+    iSTFT round trip, HPSS masks (kernel 31), renoise, and the centre of
+    gravity and adaptive chains on its first 10 s."""
+    from pyaudiorestoration_tpu_torch.models import trackers
+    from pyaudiorestoration_tpu_torch.ops import decompose, fourier
+    from pyaudiorestoration_tpu_torch.parallel import mesh as pm
+    from pyaudiorestoration_tpu_torch.parallel import sharded as ps
+    from pyaudiorestoration_tpu_torch.pipelines import renoiser
+
+    mesh = pm.Mesh(1, 4, dev)
+    mono = wow_take(sr, seconds)[:, 0]
+    N = -(-len(mono) // (4 * TOOL_FFT)) * (4 * TOOL_FFT)
+    x = np.zeros((1, N), np.float32)
+    x[0, :len(mono)] = mono
+    xs = pm.shard_time_batch(mesh, x)
+    g = pm.gather_time_batch
+    rec = {"backend": mesh.backend}
+    wall, spec = sync_wall(mesh, lambda: ps.stft_sharded(mesh, xs, TOOL_FFT, TOOL_HOP))
+    rec["stft_s"] = wall
+    mag = torch.abs(spec)
+    spec_g = g(mesh, torch.view_as_real(spec).contiguous(), time_axis=2)
+    wall, y = sync_wall(mesh, lambda: ps.istft_sharded(
+        mesh, ps.stft_sharded(mesh, xs, TOOL_FFT, TOOL_HOP, "hann"), TOOL_FFT, TOOL_HOP,
+        "hann"))
+    rec["stft_istft_s"] = wall
+    y = g(mesh, y)
+    wall, (mh, mp) = sync_wall(mesh, lambda: ps.hpss_sharded(mesh, mag, kernel_size=31))
+    rec["hpss_s"] = wall
+    mh, mp = g(mesh, mh, time_axis=2), g(mesh, mp, time_axis=2)
+    # a flat -30 dB threshold: the noise floor (~-65 dB) far below, the tone above
+    profile = np.full(TOOL_FFT // 2 + 1, -30.0, np.float32)
+    wall, rn = sync_wall(mesh, lambda: ps.renoise_sharded(mesh, xs, profile, -20.0,
+                                                          TOOL_FFT, TOOL_HOP, "hann"))
+    rec["renoise_s"] = wall
+    rn = g(mesh, rn)
+    n10 = min(N, 4 * TOOL_HOP * (int(10 * sr) // (4 * TOOL_HOP)))
+    short = pm.shard_time_batch(mesh, x[:, :n10])
+    smag = torch.abs(ps.stft_sharded(mesh, short, TOOL_FFT, TOOL_HOP))
+    f0_bin = F0 * TOOL_FFT / sr
+    NL0, NU0 = np.array([int(f0_bin) - 4]), np.array([int(f0_bin) + 5])
+    hist0 = np.full((1, 4), np.log2(F0), np.float32)
+    wall, cog = sync_wall(mesh, lambda: ps.cog_sharded(mesh, smag, NL0, NU0, 1.0 / 12.0,
+                                                       TOOL_FFT, sr))
+    rec["cog_s"] = wall
+    wall, ada = sync_wall(mesh, lambda: ps.adaptive_peak_sharded(
+        mesh, smag, hist0, 1.0, "Linear", TOOL_FFT, sr))
+    rec["adaptive_s"] = wall
+    cog, ada = g(mesh, cog), g(mesh, ada)
+    smag_g = g(mesh, smag, time_axis=2)
+    if mesh.rank != 0:
+        return rec
+    xt = torch.as_tensor(x[0], device=dev)
+    dense = fourier.stft(xt, TOOL_FFT, TOOL_HOP, center=False).cpu().numpy()
+    got = spec_g[0, ..., 0] + 1j * spec_g[0, ..., 1]
+    T = dense.shape[1]
+    rec["stft_rel_err"] = float(np.abs(got[:, :T] - dense).max() / np.abs(dense).max())
+    sl = slice(TOOL_FFT, N - TOOL_FFT)
+    rec["istft_err"] = float(np.abs(y[0, sl] - x[0, sl]).max())
+    mag_d = torch.as_tensor(np.abs(got), device=dev)
+    dh, dp = decompose.hpss(mag_d, kernel_size=31, mask=True)
+    rec["hpss_err"] = max(float(np.abs(mh[0] - dh.cpu().numpy()).max()),
+                          float(np.abs(mp[0] - dp.cpu().numpy()).max()))
+    sd = fourier.stft(xt, TOOL_FFT, TOOL_HOP, "hann", center=False)
+    fac = renoiser._mask_fac(20.0 * torch.log10(torch.abs(sd) + 1e-7),
+                             torch.as_tensor(profile, device=dev), -20.0)
+    rd = fourier.istft(sd * fac, TOOL_HOP, window_name="hann", center=False,
+                       length=N).cpu().numpy()
+    rec["renoise_err"] = float(np.abs(rn[0, sl] - rd[sl]).max())
+    with np.errstate(divide="ignore"):
+        lff = torch.as_tensor(np.log2(np.maximum(fourier.fft_freqs(TOOL_FFT, sr), 1e-12))
+                              .astype(np.float32), device=dev)
+    frames = torch.as_tensor(smag_g[0].T.copy(), device=dev)
+    cog_d = trackers._cog_scan(frames, lff, torch.tensor(int(NL0[0]), device=dev),
+                               torch.tensor(int(NU0[0]), device=dev), 1.0 / 12.0,
+                               TOOL_FFT, sr).cpu().numpy()
+    ada_d = trackers._adaptive_peak_scan(
+        frames, tuple(torch.tensor(float(v), device=dev) for v in hist0[0]), 1.0,
+        "Linear", TOOL_FFT, sr).cpu().numpy()
+    rec["cog_equal"] = bool(np.array_equal(cog[0], cog_d))
+    rec["adaptive_equal"] = bool(np.array_equal(ada[0], ada_d))
+    rec["cog_max_diff"] = float(np.abs(cog[0] - cog_d).max())
+    rec["adaptive_max_diff"] = float(np.abs(ada[0] - ada_d).max())
+    return rec
+
+
+def takes_batch_wall(dev):
+    """Phase 31's yardstick: the warm wall of ``restore_fused_takes`` on the
+    8-take batch on one card (K1)."""
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+
+    xb, lengths, NL, NU, band = mesh_batch(SR, SECONDS, 1)
+    B, F = xb.shape[0], NL.shape[0]
+
+    def takes_run():
+        return rt.restore_fused_takes(xb, np.broadcast_to(NL, (B, F)),
+                                      np.broadcast_to(NU, (B, F)), FFT, FFT // OVERLAP,
+                                      ZEROPAD, MAX_N, QUALITY, DRIFT, backend="pallas",
+                                      band=band, lengths=lengths, device=dev)
+    takes_run()
+    return wall_s(takes_run, 3)[0]
+
+
+def nccl_runs(count):
+    """Phase 31 under NCCL, one rank a card, over min(4, ``count``) cards:
+    the 1 x k mesh, and 2 x 2 where there are four.  Returns each mesh's
+    ranks' records, keyed "<files>x<time> nccl"."""
+    from pyaudiorestoration_tpu_torch.parallel import mesh as pm
+
+    k = min(4, count)
+    shapes = [(1, k)] + ([(2, 2)] if k == 4 else [])
+    multi = pm.launch(fused_mesh_rank, k, (shapes, SR, SECONDS), device="cuda")
+    return {f"{s} nccl": [r[s] for r in multi] for s in multi[0]}
+
+
+def report_fused_runs(runs, takes_wall, smi, on):
+    """Phase 31's lines for each mesh of ``runs`` (name -> its ranks'
+    records from :func:`fused_mesh_rank`) and its checks: one K1 (or K2)
+    launch a rank (``on`` is 0 where no card runs the kernels), every row
+    bit-equal to its solo run, K1 within ``TOL`` of K2."""
+    for name, recs in runs.items():
+        r0 = recs[0]
+        k1 = [r["pallas_launches"] for r in recs]
+        k2 = [r["xla_launches"] for r in recs]
+        print(f"[{smi}] phase 31 restore_fused_sharded {name} ({r0['backend']}, "
+              f"{len(recs)} rank(s), shard {r0['shard']}): grid {r0['grid']}; launches "
+              f"(K1, K2) per rank with K1 {k1}, with K2 {k2}; walls K1 cold "
+              f"{r0['pallas_cold_s']:.4f} s, warm "
+              + ", ".join(f"{w * 1e3:.3f}" for w in r0["pallas_warm_s"])
+              + " ms; K2 warm " + ", ".join(f"{w * 1e3:.3f}" for w in r0["xla_warm_s"])
+              + f" ms (restore_fused_takes x8 warm {takes_wall * 1e3:.3f} ms); K1 vs K2 "
+              f"max|d| {max(r['k1_vs_k2'] for r in recs):.3e}; rows bit-equal to their "
+              f"solo runs {r0['rows_bit_equal']} (max|d| {max(r0['rows_max_abs_diff']):.3e});"
+              f" halo exchange {r0['halo_exchange_ms']:.3f} ms, carry all_gather "
+              f"{r0['carry_all_gather_ms']:.3f} ms, limbs psum {r0['limbs_psum_ms']:.3f} ms")
+        for kname in ("k1_plan_entry", "k2_plan_entry"):
+            print(f"[{smi}] phase 31 {kname} at the {name} shard ({r0[kname]['rows']} rows x "
+                  f"max_n {MAX_N}): {kernel_line(r0[kname])}; max|d| over ranks "
+                  f"{max(r[kname]['max_abs_err'] for r in recs):.3e} (tol {TOL})")
+        if k1 != [[on, 0]] * len(recs) or k2 != [[0, on]] * len(recs):
+            raise RuntimeError(f"restore_fused_sharded {name}: launches {k1} / {k2}, want "
+                               "one K1 (or K2) launch a rank")
+        if not all(r0["rows_bit_equal"]) or not max(r["k1_vs_k2"] for r in recs) <= TOL:
+            raise RuntimeError(f"restore_fused_sharded {name}: rows differ from their solo "
+                               f"runs {r0['rows_max_abs_diff']}")
+
+
+def four_rank_world(dev, take_path, f0, export, step_paths, sr, seconds, timed=True):
+    """The four-rank world of phases 31-34: one spawn, every mesh phase that
+    needs four ranks, in order."""
+    return {"fused": fused_mesh_rank(dev, MESH_SHAPES, sr, seconds, timed),
+            "files": stereo_lag_rank(dev, take_path, f0, export, timed),
+            "restore_step": restore_step_rank(dev, step_paths, timed),
+            "tools": tools_rank(dev, sr, seconds)}
+
+
+def step_takes(tmp, sr):
+    """Phase 9's three 10 s takes of unequal length, written to ``tmp``."""
+    paths = []
+    for i, L in enumerate([10 * sr, 10 * sr - 7777, 10 * sr - 40001]):
+        paths.append(os.path.join(tmp, f"step{i}.wav"))
+        wavfile.write(paths[-1], sr, wow_take(sr, L / sr, seed=10 + i)[:L, 0])
+    return paths
+
+
+def kernel_line(rec):
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound")
+    return ", ".join(f"{k} {rec[k]:.4g}" if isinstance(rec[k], float) else f"{k} {rec[k]}"
+                     for k in keys)
+
+
+def mesh_phases(take, sig, f0, dev, smi, export):
+    """Phases 31-34 (module docstring).  ``export``: phase 15's
+    ratio-corrected source (C, n) and its lag curve.  Returns the kernels'
+    records at the mesh's shapes and launches, and the walls."""
+    from pyaudiorestoration_tpu_torch import cli
+    from pyaudiorestoration_tpu_torch.parallel import mesh as pm
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+
+    hop = FFT // OVERLAP
+    # 31 at 1 x 1: one rank, NCCL, in this process
+    one = pm.launch(fused_mesh_rank, 1, ([(1, 1)], SR, SECONDS), device=dev.type)[0]["1x1"]
+    _, _, NL, NU, band = mesh_batch(SR, SECONDS, 1)
+    takes_wall = takes_batch_wall(dev)
+    src_rows, lag_curve = export
+    with tempfile.TemporaryDirectory() as tmp:
+        take_path = os.path.join(tmp, "stereo.wav")
+        wavfile.write(take_path, SR, take)
+        src_path = os.path.join(tmp, "src_ratio.wav")
+        wavfile.write(src_path, TS_SR, np.ascontiguousarray(src_rows.T))
+        paths = step_takes(tmp, SR)
+        t0 = time.perf_counter()
+        four = pm.launch(four_rank_world, 4, (take_path, f0, (
+            src_path, lag_curve[:, 0], lag_curve[:, 1]), paths, SR, SECONDS),
+            device=dev.type, backend="gloo")
+        four_wall = time.perf_counter() - t0
+        stereo = wavfile.read(four[0]["files"]["file"]["output"])[1]
+        lagged = wavfile.read(four[0]["files"]["lag"]["output"])[1]
+        # 33: the fixed-length tier through the CLI, one rank on the card
+        t0 = time.perf_counter()
+        rc = cli.main(["respeed-batch", *paths, "--tier", "fixed", "--f0", str(F0),
+                       "--fft-size", str(FFT), "--step", str(hop), "--device", dev.type])
+        cli_wall = time.perf_counter() - t0
+        fixed = []
+        for p in paths:
+            x = wavfile.read(p)[1].astype(np.float64)
+            y = wavfile.read(p[:-4] + "_res.wav")[1].astype(np.float64)
+            if rc != 0 or len(y) != len(x) or not np.all(np.isfinite(y)):
+                raise RuntimeError(f"respeed-batch --tier fixed: rc {rc}, {p}: {y.shape}")
+            fixed.append((tone_stability(x, SR), tone_stability(y, SR)))
+    count = torch.cuda.device_count() if dev.type == "cuda" else 0
+    multi = nccl_runs(count) if count >= 2 else {}
+
+    # 31: every rank's launches, the rows against their solo runs (a CPU
+    # rehearsal of this phase launches no kernel: the wrappers run the plain versions)
+    on = int(dev.type == "cuda")
+    runs = {"1x1": [one]}
+    runs.update({s: [r["fused"][s] for r in four] for s in ("1x4", "2x2")})
+    runs.update(multi)
+    report_fused_runs(runs, takes_wall, smi, on)
+    if not multi:
+        print(f"[{smi}] phase 31: {count} card(s) visible, the NCCL run over several cards "
+              "skipped")
+
+    # 32: the stereo take through the mesh with its shared curve against phase 7's
+    fplan = rt._fused_plan(sig[0], torch.as_tensor(NL[:len(take) // hop + 1], device=dev),
+                           torch.as_tensor(NU[:len(take) // hop + 1], device=dev), FFT,
+                           hop, ZEROPAD, MAX_N, QUALITY, DRIFT, "blackmanharris", band)
+    grid = rt.run_banded_sinc(sig, *fplan, MAX_N, QUALITY, DRIFT, "pallas").cpu().numpy()
+    nn7 = fplan[1].cpu().numpy()
+    ref = np.stack([rt.compact_output(grid[c], {"n": nn7, "n_out": int(nn7.sum())})
+                    for c in range(2)], -1)
+    files = [r["files"] for r in four]
+    equal = stereo.shape == ref.shape and np.array_equal(stereo, ref)
+    print(f"[{smi}] phase 32 restore_file_sharded (2x2 gloo, channels on the files axis, "
+          f"shared curve): wall {files[0]['file']['wall_s']:.3f} s, K1 launches per rank "
+          f"{[f['file']['launches'][0] for f in files]}; output {stereo.shape} vs phase 7's "
+          f"{ref.shape}, bit-equal {equal}")
+    for c in range(2):
+        compare_compacted(stereo[:, c], ref[:, c], f"phase 32 channel {c} vs phase 7")
+    if [f["file"]["launches"] for f in files] != [[on, 0]] * 4:
+        raise RuntimeError(f"restore_file_sharded launches {[f['file'] for f in files]}")
+
+    # 34: the tapesync export on the mesh against the dense export
+    dense = rs_dense_export(src_rows, lag_curve, dev)
+    m = min(len(dense), len(lagged)) - 4096
+    lag_err = float(np.abs(lagged[4096:m] - dense[4096:m]).max())
+    k2_lag = [f["lag"]["launches"] for f in files]
+    print(f"[{smi}] phase 34 lag_resample_file_sharded (2x2 gloo) on phase 15's pair: wall "
+          f"{files[0]['lag']['wall_s']:.3f} s, K2 launches per rank {k2_lag}; lags up "
+          f"to {np.abs(lag_curve[:, 1]).max() * TS_SR:.0f} samples; interior max|d| vs "
+          f"the dense export {lag_err:.2e} (tol 1e-4: both round a position to float32 "
+          f"relative to an anchor up to ~600 samples back, 6.1e-5 samples, at slopes "
+          f"up to ~0.7 a sample); K2 grid entry at its shape: "
+          f"{kernel_line(files[0]['lag']['k2_grid_entry'])}")
+    if k2_lag != [[0, on]] * 4 or not lag_err <= 1e-4:
+        raise RuntimeError(f"lag_resample_file_sharded: launches {k2_lag}, max|d| {lag_err}")
+    tools = four[0]["tools"]
+    print(f"[{smi}] phase 34 tool shards (1x4 gloo, fft {TOOL_FFT}/{TOOL_HOP}) vs the dense "
+          f"port: STFT relative max|d| {tools['stft_rel_err']:.2e} (tol 1e-5), iSTFT round "
+          f"trip {tools['istft_err']:.2e} (tol 1e-3), HPSS masks {tools['hpss_err']:.2e} "
+          f"(tol 1e-5), renoise {tools['renoise_err']:.2e} (tol 5e-4), CoG chain equal "
+          f"{tools['cog_equal']} ({tools['cog_max_diff']:.2e}), adaptive chain equal "
+          f"{tools['adaptive_equal']} ({tools['adaptive_max_diff']:.2e}); walls stft "
+          f"{tools['stft_s']:.3f} s, stft+istft {tools['stft_istft_s']:.3f} s, hpss "
+          f"{tools['hpss_s']:.3f} s, renoise {tools['renoise_s']:.3f} s, cog "
+          f"{tools['cog_s']:.3f} s, adaptive {tools['adaptive_s']:.3f} s")
+    require(tools["stft_rel_err"] <= 1e-5 and tools["istft_err"] <= 1e-3
+            and tools["hpss_err"] <= 1e-5 and tools["renoise_err"] <= 5e-4
+            and tools["cog_equal"] and tools["adaptive_equal"],
+            f"the tool shards disagree with the dense port: {tools}")
+
+    # 33: the fixed tier's CLI and K2's grid entry at restore_step's sinc shape
+    steps = [r["restore_step"] for r in four]
+    k2_step = [s["launches"] for s in steps]
+    cli_ranks = pm.world_ranks(dev.type)
+    print(f"[{smi}] phase 33 respeed-batch --tier fixed ({cli_ranks} rank(s), "
+          f"{pm.world_backend(cli_ranks, dev.type)}): 3 takes, wall {cli_wall:.3f} s; flutter "
+          + ", ".join(f"{a:.2e} -> {b:.2e}" for a, b in fixed)
+          + f"; restore_step sinc on the 1x4 mesh (drift halo {steps[0]['drift_halo']}):"
+          f" K2 launches per rank {k2_step}, cold "
+          f"{steps[0]['cold_s']:.3f} s, warm "
+          + ", ".join(f"{w:.3f}" for w in steps[0]["warm_s"]) + " s, flutter "
+          + ", ".join(f"{a:.2e} -> {b:.2e}" for a, b in steps[0]["flutter"])
+          + f"; K2 grid entry at its shape: {kernel_line(steps[0]['k2_grid_entry'])}")
+    require(all(b < 0.5 * a for a, b in fixed), f"the fixed tier's flutter {fixed}")
+    require(all(b < 0.6 * a for a, b in steps[0]["flutter"]),
+            f"restore_step sinc flutter {steps[0]['flutter']}")
+    require(k2_step == [[0, on]] * 4, f"restore_step sinc launches {k2_step}")
+    print(f"[{smi}] phases 31-34: the four-rank world took {four_wall:.1f} s")
+
+    k1_paths = {f"restore_fused_sharded {n} ({recs[0]['backend']}, all ranks)":
+                sum(r["pallas_launches"][0] for r in recs) for n, recs in runs.items()}
+    k1_paths["restore_file_sharded 2x2 (gloo, all ranks)"] = sum(
+        f["file"]["launches"][0] for f in files)
+    k2_paths = {f"restore_fused_sharded {n} xla ({recs[0]['backend']}, all ranks)":
+                sum(r["xla_launches"][1] for r in recs) for n, recs in runs.items()}
+    k2_paths["restore_step sinc 1x4 (gloo, all ranks)"] = sum(s[1] for s in k2_step)
+    k2_paths["lag_resample_file_sharded 2x2 (gloo, all ranks)"] = sum(s[1] for s in k2_lag)
+    return {"k1_paths": k1_paths, "k2_paths": k2_paths,
+            "k1": {f"plan_entry_at_mesh_{n}": recs[0]["k1_plan_entry"]
+                   for n, recs in runs.items()},
+            "k2": {**{f"plan_entry_at_mesh_{n}": recs[0]["k2_plan_entry"]
+                      for n, recs in runs.items()},
+                   "grid_entry_at_restore_step_sinc": steps[0]["k2_grid_entry"],
+                   "grid_entry_at_lag_resample_sharded": files[0]["lag"]["k2_grid_entry"]},
+            "walls": {"restore_fused_takes_x8_warm_s": takes_wall,
+                      **{f"restore_fused_sharded {n} warm_s": recs[0]["pallas_warm_s"]
+                         for n, recs in runs.items()},
+                      **{f"{n} halo/carry/psum ms": [recs[0]["halo_exchange_ms"],
+                                                     recs[0]["carry_all_gather_ms"],
+                                                     recs[0]["limbs_psum_ms"]]
+                         for n, recs in runs.items()},
+                      "restore_file_sharded_s": files[0]["file"]["wall_s"],
+                      "lag_resample_file_sharded_s": files[0]["lag"]["wall_s"],
+                      "respeed-batch --tier fixed_s": cli_wall,
+                      "four_rank_world_s": four_wall, "tools": tools}}
+
+
+def rs_dense_export(src_rows, lag_curve, dev):
+    """tapesync's own export of the (C, n) source through the lag curve:
+    ``lag_to_pos`` positions and ``sinc_resample`` (K1's grid entry)."""
+    from pyaudiorestoration_tpu_torch.ops import resampling as rs
+
+    n = src_rows.shape[1]
+    pos = rs.lag_to_pos(lag_curve[:, 0] * TS_SR, lag_curve[:, 1] * TS_SR, n)
+    return rs.sinc_resample(np.ascontiguousarray(src_rows.T), pos, quality=QUALITY,
+                            device=dev)
+
+
+def main_multi():
+    """``python3 chip_smoke.py --multi``, on a machine of two cards or more:
+    phase 31 under NCCL alone, one rank a card over min(4, cards) (the
+    kernels built first), beside ``restore_fused_takes``' wall on one
+    card; the ranks' records as JSON on the last line."""
+    from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
+    from pyaudiorestoration_tpu_torch.utils.device import resolve_device
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"chip_smoke --multi: {count} card(s), needs two or more", file=sys.stderr)
+        return 2
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           check=True, timeout=60).stdout.strip().splitlines()
+    print("\n".join(cards))
+    smi = cards[0]
+    t0 = time.perf_counter()
+    print(f"build: kernels {kb.build().name} in {time.perf_counter() - t0:.2f} s")
+    takes_wall = takes_batch_wall(resolve_device("cuda"))
+    t0 = time.perf_counter()
+    runs = nccl_runs(count)
+    print(f"[{smi}] phase 31 under NCCL over {len(next(iter(runs.values())))} cards: the "
+          f"world took {time.perf_counter() - t0:.1f} s")
+    report_fused_runs(runs, takes_wall, smi, 1)
+    print(json.dumps({"restore_fused_takes_x8_warm_s": takes_wall,
+                      **{name: recs[0] for name, recs in runs.items()}}))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--multi"]:
+        return main_multi()
     from pyaudiorestoration_tpu_torch import cli
     from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
     from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
@@ -1847,7 +2487,7 @@ def main():
     # 13-15. heal, dropouts-batch and tapesync through the CLI
     heal = heal_phase(dev, smi)
     batch = dropouts_batch_phase(dev, smi)
-    tape, k1_tapesync = tapesync_phase(dev, smi)
+    tape, k1_tapesync, export = tapesync_phase(dev, smi)
 
     # 16-24. the spectral and analysis tools through the CLI
     tools = {"difeq": difeq_phase(take, dev, smi), "expand": expand_phase(dev, smi),
@@ -1867,7 +2507,10 @@ def main():
     surface["doctor"] = doctor_phase(smi)
     forms = matplotlib_forms(take, dev, mpl)
 
-    print(f"chip_smoke: phases 1-30 in {time.perf_counter() - started:.1f} s")
+    # 31-34. the mesh tier over torch.distributed ranks
+    mesh = mesh_phases(take, sig, f0, dev, smi, export)
+
+    print(f"chip_smoke: phases 1-34 in {time.perf_counter() - started:.1f} s")
     common = {"route": "cuda", "source": "pyaudiorestoration_tpu_torch/csrc/sinc_banded.cu"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
@@ -1892,22 +2535,23 @@ def main():
                               "tapesync --compare":
                                   surface["tapesync --compare"]["k1_launches"],
                               "doctor's probe (its child process)":
-                                  surface["doctor"]["k1_launches"]},
+                                  surface["doctor"]["k1_launches"],
+                              **mesh["k1_paths"]},
          **{k: v for k, v in k1.items() if k not in keys},
          "grid_entry_at_sinc_resample": k1_resample,
          "grid_entry_at_tapesync_resample_ratio": k1_tapesync["resample_ratio"],
          "grid_entry_at_tapesync_run": k1_tapesync["run"],
          "grid_entry_at_humspeed_resample_ratio": k1_hum,
          "grid_entry_at_renoise_noise_resample": k1_renoise,
-         "plan_entry_at_humspeed_stream": k1_hum_stream},
+         "plan_entry_at_humspeed_stream": k1_hum_stream, **mesh["k1"]},
         {"name": "sinc_banded_gathered", **common,
          "replaces": "pyaudiorestoration_tpu/kernels/sinc_pallas.py:350",
          "entry": "sinc_banded_gathered_plan_f32", "launches": k2_fused,
          **{k: k2[k] for k in keys},
-         "launches_by_path": {"restore_fused_device xla": k2_fused},
-         **{k: v for k, v in k2.items() if k not in keys}}],
+         "launches_by_path": {"restore_fused_device xla": k2_fused, **mesh["k2_paths"]},
+         **{k: v for k, v in k2.items() if k not in keys}, **mesh["k2"]}],
         "walls_s": {"heal": heal, "dropouts-batch": batch, "tapesync": tape, **tools,
-                    **surface},
+                    **surface, "mesh": mesh["walls"]},
         "matplotlib_forms": forms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,10 +24,13 @@ its flags and defaults plus ``--device``: the portable trackers (``--mode``,
 ``--trail``, ``--adaptation``, ``--resampling-mode``, ``--save-project``),
 ``.spd`` project replay, the device pipeline (``--fast``) and the streamed
 two-pass tier (``--stream``, or automatically for takes over 1 GiB
-decoded).  ``respeed-batch --tier fused`` restores independent takes on one
-card; ``--tier fixed`` exits with a "not ported yet" error, as does
-``bench``.  Every other subcommand takes the JAX package's flags and
-defaults (its cli.py:93-279) plus ``--device``.  ``view``, ``listen`` and
+decoded).  ``respeed-batch`` restores independent takes over a
+('files', 'time') mesh of ranks: ``--tier fused`` (the device plan and
+banded sinc per take) or ``--tier fixed`` (the fixed-length tier, which
+needs ``--f0``).  Run plainly it meshes over every visible card (one rank
+on the CPU); under ``torchrun`` it joins torchrun's group.  ``bench``
+exits with a "not ported yet" error.  Every other subcommand takes the JAX
+package's flags and defaults (its cli.py:93-279) plus ``--device``.  ``view``, ``listen`` and
 ``tapesync --compare x.html`` write self-contained HTML pages whose images
 are rendered on the device; ``tapesync --compare x.png`` and ``renoise
 --preview`` draw matplotlib figures and need matplotlib.  ``doctor`` exits
@@ -105,7 +108,7 @@ def build_parser():
     sp.add_argument("--step", type=int, default=128)
     sp.add_argument("--tier", default="fused", choices=["fused", "fixed"],
                     help="fused = the device plan and banded sinc per take; "
-                         "fixed = the fixed-length linear tier (not ported yet)")
+                         "fixed = the fixed-length linear tier")
     sp.add_argument("--sinc-quality", type=int, default=50)
     sp.add_argument("--zeropad", type=int, default=1)
     _add_device_arg(sp)
@@ -365,10 +368,13 @@ def _respeed(args):
 
 
 def _respeed_batch(args):
-    if args.tier == "fixed":
-        _not_ported("respeed-batch --tier fixed (the fixed-length tier)")
     from .parallel import batch
 
+    if args.tier == "fixed":
+        if args.f0 is None:
+            raise ValueError("--tier fixed requires --f0")
+        return batch.restore_batch_files(args.inputs, args.f0, n_fft=args.fft_size,
+                                         step=args.step, device=args.device)
     return batch.restore_batch_files_fused(
         args.inputs, args.f0, fft_size=args.fft_size,
         fft_overlap=max(1, args.fft_size // args.step), zeropad=args.zeropad,

@@ -243,15 +243,28 @@ def normalize_speeds(refined, center: float = None, frame_mask=None,
     # on the CPU (their float32 log and pow differ by an ulp on ~1% of
     # inputs, enough to move the plan), and XLA's float32 log and pow agree
     # with it on ~99% and ~99.9% of inputs.
-    f64 = torch.float64
-    ls = torch.log(torch.clamp(refined, min=1.0).to(f64)).to(torch.float32).to(f64)
-    ls = ls * _INV_LN2_F32
+    ls = log2_speeds(refined)
     if center is None:
         mean = torch.mean(ls.to(torch.float32))
     else:
         mean = exact_log_center(
             quantized_log_sums(ls, center, mask=frame_mask),
             ls.shape[-1], center, inv_limbs=inv_limbs)
+    return centre_speeds(ls, mean)
+
+
+def log2_speeds(refined):
+    """``log2(max(refined, 1))`` as :func:`normalize_speeds` forms it: the
+    float32 log times the float32 1/ln 2, the product kept exact in float64."""
+    f64 = torch.float64
+    ls = torch.log(torch.clamp(refined, min=1.0).to(f64)).to(torch.float32).to(f64)
+    return ls * _INV_LN2_F32
+
+
+def centre_speeds(ls, mean):
+    """``2 ** (ls - mean)`` with the centring rounded once to float32, as
+    :func:`normalize_speeds` does; ``mean`` broadcasts against ``ls``."""
+    f64 = torch.float64
     centred = (ls - mean.to(f64)).to(torch.float32)
     return torch.pow(2.0, centred.to(f64)).to(torch.float32)
 

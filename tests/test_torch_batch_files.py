@@ -1,6 +1,7 @@
 """The port's file-level batch restore and ``respeed-batch`` against the
 JAX package on the CPU: the host helpers bit for bit, the written files by
-the compacted-sample rule, flutter, grouping, the int32 cap and the CLI."""
+the compacted-sample rule, flutter, grouping, the int32 cap and the CLI
+(both tiers; the mesh worlds are in test_torch_mesh.py)."""
 
 import json
 import os
@@ -149,11 +150,17 @@ def test_grouping_does_not_change_the_bytes(outputs):
 
 
 def test_groups_split_at_the_int32_cap():
+    """A rank holds as many takes of a group as keep its flattened signal
+    under the int32 cap of the sinc's anchors; a take at the cap no longer
+    raises: it raises the world to a mesh whose time shards stay under 2**30
+    samples (the int64 plan)."""
     cap = 1 << 31
-    assert tb._groups([10, 20, 30, 40, 50], 2) == [[0, 1], [2, 3], [4]]
-    assert tb._groups([cap // 3 + 1] * 3 + [10], 8) == [[0, 1], [2, 3]]
-    with pytest.raises(NotImplementedError, match="restore_fused_sharded"):
-        tb._groups([10, cap], 8)
+    assert tb._takes_per_rank(2, 10) == 2
+    assert tb._takes_per_rank(8, cap // 3 + 1) == 2
+    assert tb._takes_per_rank(8, cap // 2) == 1
+    assert tb._takes_per_rank(8, cap - 1) == 1
+    assert tb._world_size(1, cap) == 2
+    assert tb._mesh_shape(2, 2, min_time=2) == (1, 2)
 
 
 def test_restore_batch_files_fused_raises_for_cuda_without_card(takes):
@@ -176,6 +183,14 @@ def test_cli_respeed_batch_on_cpu(takes, capsys):
 
 
 def test_cli_respeed_batch_fixed_tier_not_ported(takes, capsys):
-    assert cli.main(["respeed-batch", takes[0], "--tier", "fixed", "--f0", "2048"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    """The fixed-length tier is ported: it writes one file of the input's
+    length per take, and keeps the JAX CLI's --f0 requirement."""
+    with pytest.raises(ValueError, match="--f0"):
+        cli.main(["respeed-batch", takes[0], "--tier", "fixed", "--device", "cpu"])
+    assert cli.main(["respeed-batch", *takes[:2], "--tier", "fixed", "--f0", "2048",
+                     "--fft-size", str(NFFT), "--step", str(STEP), "--device", "cpu"]) == 0
+    outs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["outputs"]
+    assert outs == [p[:-4] + "_res.wav" for p in takes[:2]]
+    for p_in, p_out in zip(takes, outs):
+        assert len(_read(p_out)) == len(_read(p_in))
 

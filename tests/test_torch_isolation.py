@@ -1,11 +1,14 @@
 """The PyTorch port stands alone: no module of ``pyaudiorestoration_tpu_torch``,
 nor ``chip_smoke.py`` or ``profile_stages.py``, imports JAX or anything of the
 JAX package, and ``respeed --fast``, ``tapesync``, ``heal``,
-``dropouts-batch``, the nine spectral and analysis tools, ``renoise
---preview`` and the user-facing surface (``view``, ``listen``, ``measure``,
-``doctor --no-device``, ``tapesync --compare x.html``) run with ``--device
-cpu`` and both blocked.  The surface runs with matplotlib blocked as well,
-where ``tapesync --compare x.png`` raises matplotlib's ImportError."""
+``dropouts-batch``, ``respeed-batch --tier fixed``, the nine spectral and
+analysis tools, ``renoise --preview`` and the user-facing surface
+(``view``, ``listen``, ``measure``, ``doctor --no-device``, ``tapesync
+--compare x.html``) run with ``--device cpu`` and both blocked.  The
+surface runs with matplotlib blocked as well, where ``tapesync --compare
+x.png`` raises matplotlib's ImportError.  The fixed tier's file entry
+over two ranks runs with both blocked in the caller's process and in the
+two ranks it spawns, none of which loads them."""
 
 import ast
 import json
@@ -146,6 +149,21 @@ def _spectral_inputs(tmp_path, cmd):
 SPECTRAL = ["tapesync", "heal", "dropouts-batch"]
 
 
+def _fixed_tier_inputs(tmp_path):
+    """Two 4 s 8 kHz tones with 2 % wow; the fixed tier's argv (no device)
+    and the outputs it writes."""
+    sr, paths = 8000, []
+    for i in range(2):
+        t = np.arange(4 * sr - 500 * i) / sr
+        speed = 1.0 + 0.02 * np.sin(2 * np.pi * (2.0 + 0.5 * i) * t)
+        paths.append(str(tmp_path / f"w{i}.wav"))
+        wavfile.write(paths[-1], sr, np.sin(2 * np.pi * 1000 * np.cumsum(speed) / sr)
+                      .astype(np.float32))
+    argv = ["respeed-batch", *paths, "--tier", "fixed", "--f0", "1000", "--fft-size",
+            "512", "--step", "128"]
+    return argv, [p[:-4] + "_res.wav" for p in paths]
+
+
 def _tool_inputs(tmp_path, sr=8000, seconds=4.0):
     """Stereo noise with a hum and a tone (4 s at 8 kHz), its compressed
     copy, a 44 rpm record's tone and a two-sample .pan project."""
@@ -239,6 +257,8 @@ def blocked_runs(tmp_path_factory):
         paths = _tool_inputs(d)
         argvs.append([a.format(tmp=d, **paths) for a in argv] + ["--device", "cpu"])
     argvs += _surface_argvs(tmp_path_factory, dirs)
+    d = dirs["respeed-batch --tier fixed"] = tmp_path_factory.mktemp("fixed_tier")
+    argvs.append(_fixed_tier_inputs(d)[0] + ["--device", "cpu"])
     runs = _run_many(argvs, JAX_NAMES)
     return {cmd: (dirs[cmd], run) for cmd, run in zip(dirs, runs)}
 
@@ -338,3 +358,55 @@ def test_png_compare_raises_matplotlibs_import_error(no_matplotlib_runs):
     assert run["rc"] is None
     assert "ImportError: matplotlib is blocked" in run["err"]
     assert not (tmp_path / "c.png").exists()
+
+
+def _check_fixed_tier(outputs, want):
+    assert outputs == want
+    for i, path in enumerate(want):
+        sr, y = wavfile.read(path)
+        assert sr == 8000 and len(y) == 4 * sr - 500 * i and np.all(np.isfinite(y))
+
+
+def test_fixed_tier_runs_with_the_jax_package_blocked(blocked_runs):
+    tmp_path, run = blocked_runs["respeed-batch --tier fixed"]
+    _check_fixed_tier(_outputs(run)["outputs"], _fixed_tier_inputs(tmp_path)[1])
+
+
+# installed in every interpreter of the run, the spawned ranks included:
+# blocks the names and, at exit, writes the ones loaded beside itself
+_SITE = _BLOCK.split("from pyaudiorestoration_tpu_torch import cli")[0] + """
+import atexit, os
+
+def _report():
+    loaded = sorted(m for m, mod in sys.modules.items()
+                    if mod is not None and m.split(".")[0] in BLOCKED)
+    name = f"loaded_{os.getpid()}.json"
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), name), "w") as f:
+        json.dump(loaded, f)
+
+atexit.register(_report)
+"""
+
+
+_FIXED_TWO_RANKS = """
+import json, sys
+from pyaudiorestoration_tpu_torch.parallel import batch
+print(json.dumps(batch.restore_batch_files(sys.argv[1:], 1000.0, n_fft=512, step=128,
+                                           device="cpu", n_ranks=2)))
+"""
+
+
+def test_fixed_tier_ranks_run_with_the_jax_package_blocked(tmp_path):
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE.replace("BLOCKED_NAMES", repr(JAX_NAMES)))
+    argv, want = _fixed_tier_inputs(tmp_path)
+    env = {**os.environ, "PYTHONPATH": f"{site}{os.pathsep}{ROOT}"}
+    r = subprocess.run([sys.executable, "-c", _FIXED_TWO_RANKS, *argv[1:3]],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    _check_fixed_tier(json.loads(r.stdout.strip().splitlines()[-1]), want)
+    reports = sorted(site.glob("loaded_*.json"))
+    # the caller's process, its two ranks and multiprocessing's resource tracker
+    assert len(reports) == 4
+    assert all(json.loads(p.read_text()) == [] for p in reports)

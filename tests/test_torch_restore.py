@@ -145,10 +145,16 @@ def test_cli_respeed_fast_on_cpu(tmp_path, capsys):
                                   ["respeed-batch", "take.wav", "--tier", "fixed",
                                    "--device", "cpu"]])
 def test_cli_paths_not_ported_exit_clearly(argv, capsys):
-    """Every form of respeed is ported; respeed-batch's fixed-length tier
-    still exits with code 2 and says so."""
-    assert cli.main(argv) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    """Every form of respeed is ported, and respeed-batch's fixed-length
+    tier too: without --f0 it raises as JAX's CLI does; with it and no
+    card, the default device raises that torch sees none."""
+    if "--f0" not in argv:
+        with pytest.raises(ValueError, match="--tier fixed requires --f0"):
+            cli.main(argv)
+    elif not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            cli.main(argv)
+    assert "not ported yet" not in capsys.readouterr().err
 
 
 def test_streamed_tier_raises_not_implemented(tmp_path, monkeypatch):
