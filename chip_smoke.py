@@ -99,11 +99,21 @@ printing the mesh's backend:
        at that shape; the tool shards at 1 x 4 (STFT, iSTFT, HPSS, renoise,
        centre of gravity, adaptive) against the port's dense functions
 
-Phases print on their own lines (13-34 beside the card's name and power
+The port's benchmark:
+
+  35   ``python3 -m pyaudiorestoration_tpu_torch bench`` in a child process,
+       bounded at 600 s: exit 0, its last two lines bench.py's two, naming
+       this card, K1 once a call in each tier, the flutter under 0.2x; and,
+       first, in this process: one call of each of its tiers under
+       ``torch.cuda.set_sync_debug_mode("warn")``, counting the host
+       synchronizations inside them (each one a pipelined call waits on),
+       and K1's plan entry against its plain version at both tiers' shapes
+
+Phases print on their own lines (13-35 beside the card's name and power
 limit); the line before the last is a JSON object with each kernel's
 launches on the main paths (the mesh's summed over its ranks), its error
 against the plain version, its time, the plain version's, its bound and
-share of it, at every shape, the walls of phases 13-34 and the matplotlib
+share of it, at every shape, the walls of phases 13-35 and the matplotlib
 forms run; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``.  Any failure raises and exits non-zero with
 no result line.  Imports no JAX.
@@ -123,14 +133,16 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
 from scipy.io import wavfile
 
+from pyaudiorestoration_tpu_torch.utils.synth import F0, tone_stability, wow_take
+
 SR = 192_000
 SECONDS = 30.0
-F0 = 3150.0  # the wow/flutter test tone of IEC 60386
 FFT, OVERLAP, ZEROPAD, QUALITY = 4096, 8, 2, 50
 TOL = 3e-5  # kernel vs plain version, as the JAX kernel vs its XLA tier
 MAX_N, DRIFT = int(FFT // OVERLAP * 1.1), 16  # the fused entries' (bench.py:95, 132)
@@ -138,30 +150,6 @@ MAX_N, DRIFT = int(FFT // OVERLAP * 1.1), 16  # the fused entries' (bench.py:95,
 PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
 FLOP_PER_TAP = 12  # sine by angle addition 3, denominator 1, reciprocal 4, quotient 2, MAC 2
 SEG_TILE_STREAM = 16384  # restore_file_streamed's seg_tile
-
-
-def tone_stability(sig, sr, smooth_periods=32):
-    """Relative std of a tone's instantaneous frequency from sub-sample zero
-    crossings averaged over ``smooth_periods`` periods (tests/test_respeeder.py)."""
-    idx = np.where(np.bitwise_xor(sig[1:] > 0, sig[:-1] > 0))[0]
-    crossings = idx + sig[idx] / (sig[idx] - sig[idx + 1])
-    k = smooth_periods
-    freqs = 2 * sr / ((crossings[2 * k:] - crossings[:-2 * k]) / k)
-    core = freqs[len(freqs) // 10: -len(freqs) // 10]
-    return float(np.std(core) / np.mean(core))
-
-
-def wow_take(sr, seconds, seed=0):
-    """Stereo pilot tone with 0.55 Hz wow (0.8 %) and 6.3 Hz flutter (0.15 %):
-    drift bound ~10 samples at max_n ~563, inside the 16 bucket."""
-    n = int(seconds * sr)
-    t = np.arange(n) / sr
-    speed = (1.0 + 0.008 * np.sin(2 * np.pi * 0.55 * t)
-             + 0.0015 * np.sin(2 * np.pi * 6.3 * t + 1.0))
-    phase = 2 * np.pi * F0 * np.cumsum(speed) / sr
-    rng = np.random.default_rng(seed)
-    mono = (0.5 * np.sin(phase) + 1e-3 * rng.standard_normal(n)).astype(np.float32)
-    return np.stack([mono, mono * 0.8], -1)
 
 
 def cuda_ms(fn, reps, inner=1):
@@ -252,21 +240,6 @@ def card_vs_cpu_restore(rt):
         compare_compacted(*outs, "cuda vs cpu (2.5 s, 22.05 kHz)")
 
 
-ENTRIES = ("sinc_banded", "sinc_banded_plan", "sinc_banded_gathered",
-           "sinc_banded_gathered_plan")
-
-
-def reset_launches(kb):
-    for name in ENTRIES:
-        getattr(kb, name).launches = 0
-
-
-def launches(kb):
-    """Launches of (K1, K2) since the last reset, over both entries of each."""
-    return (kb.sinc_banded.launches + kb.sinc_banded_plan.launches,
-            kb.sinc_banded_gathered.launches + kb.sinc_banded_gathered_plan.launches)
-
-
 def bound(taps, nbytes):
     """The least time the card could take, in ms, and which bounds it:
     FLOP_PER_TAP a tap at the FP32 peak, or the bytes at the HBM rate."""
@@ -352,12 +325,12 @@ def fused_single(sig, NLs, NUs, band, n_plan, take, dev):
             return rt.restore_fused_device(sig, NLs, NUs, FFT, hop, ZEROPAD, MAX_N,
                                            QUALITY, DRIFT, backend=backend,
                                            band=band, device=dev)
-        reset_launches(kb)
+        kb.reset_launches()
         t0 = time.perf_counter()
         grids[backend] = run()
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
-        counts[backend] = launches(kb)
+        counts[backend] = kb.launches()
         warm, runs = wall_s(run, 5)
         times[backend] = (cold, warm, runs)
     k1, k2 = counts["pallas"][0], counts["xla"][1]
@@ -398,12 +371,12 @@ def fused_batch(mono, NLs, NUs, band, dev):
         return rt.restore_fused_takes(takes, NLb, NUb, FFT, hop, ZEROPAD, MAX_N,
                                       QUALITY, DRIFT, backend="pallas", band=band,
                                       device=dev)
-    reset_launches(kb)
+    kb.reset_launches()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    count = launches(kb)
+    count = kb.launches()
     warm, runs = wall_s(run, 5)
     solo = rt.restore_fused_device(takes[0], NLs, NUs, FFT, hop, ZEROPAD, MAX_N, QUALITY,
                                    DRIFT, backend="pallas", band=band, device=dev)
@@ -453,14 +426,14 @@ def cli_batch():
         for i, L in enumerate(lengths):
             paths.append(os.path.join(tmp, f"take{i}.wav"))
             wavfile.write(paths[-1], SR, wow_take(SR, L / SR, seed=10 + i)[:L, 0])
-        reset_launches(kb)
+        kb.reset_launches()
         t0 = time.perf_counter()
         rc = cli.main(["respeed-batch", *paths, "--device", "cuda", "--f0", str(F0),
                        "--fft-size", str(FFT), "--step", str(FFT // OVERLAP),
                        "--zeropad", str(ZEROPAD)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        count = launches(kb)
+        count = kb.launches()
         flutter = []
         for p in paths:
             x = wavfile.read(p)[1].astype(np.float64)
@@ -548,7 +521,7 @@ def streamed_phase(take, dev):
 
         rt.restore_file_streamed = spy
         try:
-            reset_launches(kb)
+            kb.reset_launches()
             t0 = time.perf_counter()
             rc = cli.main(["respeed", src, "--fast", "--device", "cuda", "--fft-size",
                            str(FFT), "--fft-overlap", str(OVERLAP), "--zeropad",
@@ -557,7 +530,7 @@ def streamed_phase(take, dev):
             wall = time.perf_counter() - t0
         finally:
             rt.restore_file_streamed = real
-        count = launches(kb)
+        count = kb.launches()
         out = os.path.join(tmp, "long_res.wav")
         n_out = len(wavfile.read(out, mmap=True)[1])
         before, after = (tone_stability(head(p, 30.0), SR) for p in (src, out))
@@ -600,12 +573,12 @@ def timed_cli(argv, reps):
     from pyaudiorestoration_tpu_torch import cli
     from pyaudiorestoration_tpu_torch.kernels import sinc_banded as kb
 
-    reset_launches(kb)
+    kb.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
-    count = launches(kb)
+    count = kb.launches()
     if rc != 0:
         raise RuntimeError(f"{argv}: rc {rc}")
     warm, runs = wall_s(lambda: cli.main(argv), reps)
@@ -998,9 +971,9 @@ def tapesync_phase(dev, smi):
 
     def counted(name, key):
         def fn(*a, **k):
-            before = launches(kb)[0]
+            before = kb.launches()[0]
             out = real[name](*a, **k)
-            seen[key] += launches(kb)[0] - before
+            seen[key] += kb.launches()[0] - before
             return out
         return fn
 
@@ -1334,12 +1307,12 @@ def humspeed_phase(take, dev, smi):
         got = run_cli(argv)
         ratio = got["matches"][-1]["ratio"]
         a = audio_io.read_file(got["outputs"][0])[0]
-        reset_launches(kb)
+        kb.reset_launches()
         t0 = time.perf_counter()
         out_s = run_cli(argv + ["--stream"])["outputs"][0]
         torch.cuda.synchronize()
         res["stream_s"] = time.perf_counter() - t0
-        res["k1_stream_launches"] = launches(kb)[0]
+        res["k1_stream_launches"] = kb.launches()[0]
         b = audio_io.read_file(out_s)[0]
     pitch = [zero_cross_hz(y[:, 0], SR) for y in (a, b)]
     h = 8192
@@ -1843,9 +1816,9 @@ def fused_mesh_rank(dev, shapes, sr, seconds, timed=True):
             def run(backend=backend):
                 return ps.restore_fused_sharded(mesh, xs, NL, NU, FFT, hop, ZEROPAD, MAX_N,
                                                 QUALITY, DRIFT, backend=backend, **kw)
-            reset_launches(kb)
+            kb.reset_launches()
             cold, res = sync_wall(mesh, run)
-            rec[f"{backend}_launches"] = list(launches(kb))
+            rec[f"{backend}_launches"] = list(kb.launches())
             warm = [sync_wall(mesh, run)[0] for _ in range(3)]
             rec[f"{backend}_cold_s"], rec[f"{backend}_warm_s"] = cold, warm
             grids[backend] = res
@@ -1925,9 +1898,9 @@ def restore_step_rank(dev, paths, timed=True):
     xb, lengths = np.ascontiguousarray(xb[:, :L]), [L] * len(lengths)
     xs = pm.shard_time_batch(mesh, xb)
     kw = dict(n_fft=FFT, step=hop, interp="sinc", nt=nt)
-    reset_launches(kb)
+    kb.reset_launches()
     wall, y = sync_wall(mesh, lambda: ps.restore_step(mesh, xs, F0, sr, **kw))
-    rec = {"backend": mesh.backend, "launches": list(launches(kb)), "cold_s": wall,
+    rec = {"backend": mesh.backend, "launches": list(kb.launches()), "cold_s": wall,
            "warm_s": [sync_wall(mesh, lambda: ps.restore_step(mesh, xs, F0, sr, **kw))[0]
                       for _ in range(3)]}
     y = pm.gather_time_batch(mesh, y)
@@ -1965,20 +1938,20 @@ def stereo_lag_rank(dev, take_path, f0, export, timed=True):
     from pyaudiorestoration_tpu_torch.utils import audio_io
 
     rec = {}
-    reset_launches(kb)
+    kb.reset_launches()
     t0 = time.perf_counter()
     out = pb.restore_file_sharded(take_path, f0_hz=f0, fft_size=FFT, fft_overlap=OVERLAP,
                                   zeropad=ZEROPAD, sinc_quality=QUALITY, drift=DRIFT,
                                   backend="pallas", device="cuda" if dev.type == "cuda"
                                   else "cpu")
-    rec["file"] = {"output": out, "launches": list(launches(kb)),
+    rec["file"] = {"output": out, "launches": list(kb.launches()),
                    "wall_s": time.perf_counter() - t0}
     src_path, st_s, lg_s = export
-    reset_launches(kb)
+    kb.reset_launches()
     t0 = time.perf_counter()
     out = pb.lag_resample_file_sharded(src_path, st_s, lg_s, sinc_quality=QUALITY,
                                        device="cuda" if dev.type == "cuda" else "cpu")
-    rec["lag"] = {"output": out, "launches": list(launches(kb)),
+    rec["lag"] = {"output": out, "launches": list(kb.launches()),
                   "wall_s": time.perf_counter() - t0}
     # K2's grid entry at lag_resample_sharded's shape: this rank's windows
     mesh = pm.Mesh(2, 2, dev)
@@ -2318,6 +2291,87 @@ def mesh_phases(take, sig, f0, dev, smi, export):
                       "four_rank_world_s": four_wall, "tools": tools}}
 
 
+BENCH_TIMEOUT_S = 600
+
+
+def host_syncs(fn):
+    """The host synchronizations that ``fn()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (one warning
+    each): the file and line of the Python call that made each."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    root = os.path.dirname(os.path.abspath(__file__))
+    return [f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def bench_phase(dev, smi):
+    """Phase 35: the port's ``bench`` (module docstring); returns its record."""
+    from pyaudiorestoration_tpu_torch import bench
+    from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
+
+    mono = wow_take(SR, SECONDS)[:, 0]
+    p = bench.plan_params(mono, SR)
+    args = (FFT, p["hop"], ZEROPAD, p["max_n"], QUALITY, DRIFT)
+    NLs = torch.full((p["n_frames"],), p["NL"], dtype=torch.int32, device=dev)
+    NUs = torch.full((p["n_frames"],), p["NU"], dtype=torch.int32, device=dev)
+    sig = torch.as_tensor(np.stack([mono, mono * 0.8]), device=dev)
+    takes = torch.as_tensor(np.stack([mono * (0.5 + 0.06 * i) for i in range(8)]),
+                            device=dev)
+    kw = dict(backend="pallas", band=p["band"], device=dev)
+    syncs = {"single": host_syncs(lambda: rt.restore_fused_device(sig, NLs, NUs, *args,
+                                                                  **kw)),
+             "batch": host_syncs(lambda: rt.restore_fused_takes(
+                 takes, NLs.expand(8, -1), NUs.expand(8, -1), *args, **kw))}
+    k1 = {tier: check_plan_kernel(
+              "K1", x, rt._fused_plan(x[0], NLs, NUs, *args, "blackmanharris", p["band"]),
+              p["max_n"], QUALITY, DRIFT, seed=seed)
+          for tier, x, seed in (("single", sig, 5), ("batch", takes, 6))}
+    del sig, takes
+    torch.cuda.empty_cache()
+    for tier, found in syncs.items():
+        where = {w: found.count(w) for w in sorted(set(found))}
+        print(f"[{smi}] bench {tier} tier: {len(found)} host synchronization(s) a call "
+              f"under set_sync_debug_mode('warn'), by caller: {where}")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [q for q in os.environ.get("PYTHONPATH", "").split(os.pathsep) if q])}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "pyaudiorestoration_tpu_torch", "bench"],
+                       capture_output=True, text=True, env=env, timeout=BENCH_TIMEOUT_S,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    require(r.returncode == 0, f"bench: exit {r.returncode}; stderr {r.stderr[-3000:]}")
+    lines = [json.loads(x) for x in r.stdout.strip().splitlines()[-2:]]
+    name = torch.cuda.get_device_name(0)
+    for line in lines:
+        print(f"[{smi}] bench: {line['metric']}: {line['value']} x realtime pipelined "
+              f"(sets {line['pipelined_sets_x_realtime']}), "
+              f"{line['x_realtime_serialized']} serialized "
+              f"(runs {line['runs_serialized_x_realtime']}), cold {line['wall_cold_s']} s, "
+              f"{line['audio_s']} s of audio; K1 launches a call "
+              f"{line['k1_launches_per_call']}, flutter {line['flutter_before']:.3e} -> "
+              f"{line['flutter_after']:.3e}; device {line['device']}")
+        require(line["device"]["name"] == name and line["k1_launches_per_call"] == 1
+                and line["backend"] == "pallas"
+                and line["flutter_after"] < 0.2 * line["flutter_before"],
+                f"bench line: {line}")
+    require("batch8_x_realtime" in lines[0] and "batch8_x_realtime" not in lines[1],
+            "bench: the lines are not in bench.py's order")
+    print(f"[{smi}] bench: the child process took {wall:.1f} s (its probe "
+          f"{lines[0]['probe_s']} s)")
+    return {"wall_s": wall, "host_syncs_a_call": {k: len(v) for k, v in syncs.items()},
+            "host_sync_callers": {k: sorted(set(v)) for k, v in syncs.items()},
+            "lines": lines, "k1": k1}
+
+
 def rs_dense_export(src_rows, lag_curve, dev):
     """tapesync's own export of the (C, n) source through the lag curve:
     ``lag_to_pos`` positions and ``sinc_resample`` (K1's grid entry)."""
@@ -2434,12 +2488,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "take.wav")
         wavfile.write(src, SR, take)
-        reset_launches(kb)
+        kb.reset_launches()
         t0 = time.perf_counter()
         rc = cli.main(["respeed", src, *argv])
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        k1_fast = launches(kb)
+        k1_fast = kb.launches()
         if rc != 0 or k1_fast != (1, 0):
             raise RuntimeError(f"respeed --fast: rc {rc}, launches {k1_fast}, want one K1")
         warm = []
@@ -2510,7 +2564,10 @@ def main():
     # 31-34. the mesh tier over torch.distributed ranks
     mesh = mesh_phases(take, sig, f0, dev, smi, export)
 
-    print(f"chip_smoke: phases 1-34 in {time.perf_counter() - started:.1f} s")
+    # 35. the port's benchmark
+    bench = bench_phase(dev, smi)
+
+    print(f"chip_smoke: phases 1-35 in {time.perf_counter() - started:.1f} s")
     common = {"route": "cuda", "source": "pyaudiorestoration_tpu_torch/csrc/sinc_banded.cu"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
@@ -2536,6 +2593,8 @@ def main():
                                   surface["tapesync --compare"]["k1_launches"],
                               "doctor's probe (its child process)":
                                   surface["doctor"]["k1_launches"],
+                              "bench, each tier (its child process), a call":
+                                  bench["lines"][0]["k1_launches_per_call"],
                               **mesh["k1_paths"]},
          **{k: v for k, v in k1.items() if k not in keys},
          "grid_entry_at_sinc_resample": k1_resample,
@@ -2543,7 +2602,9 @@ def main():
          "grid_entry_at_tapesync_run": k1_tapesync["run"],
          "grid_entry_at_humspeed_resample_ratio": k1_hum,
          "grid_entry_at_renoise_noise_resample": k1_renoise,
-         "plan_entry_at_humspeed_stream": k1_hum_stream, **mesh["k1"]},
+         "plan_entry_at_humspeed_stream": k1_hum_stream, **mesh["k1"],
+         "plan_entry_at_bench_single": bench["k1"]["single"],
+         "plan_entry_at_bench_batch": bench["k1"]["batch"]},
         {"name": "sinc_banded_gathered", **common,
          "replaces": "pyaudiorestoration_tpu/kernels/sinc_pallas.py:350",
          "entry": "sinc_banded_gathered_plan_f32", "launches": k2_fused,
@@ -2551,7 +2612,8 @@ def main():
          "launches_by_path": {"restore_fused_device xla": k2_fused, **mesh["k2_paths"]},
          **{k: v for k, v in k2.items() if k not in keys}, **mesh["k2"]}],
         "walls_s": {"heal": heal, "dropouts-batch": batch, "tapesync": tape, **tools,
-                    **surface, "mesh": mesh["walls"]},
+                    **surface, "mesh": mesh["walls"],
+                    "bench": {k: v for k, v in bench.items() if k != "k1"}},
         "matplotlib_forms": forms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,11 +65,11 @@ import torch
 from scipy.io import wavfile
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import (DRIFT, F0, FFT, HUM, LONG_MINUTES, MAX_N, N_DIPS, N_DROPS,
-                        OVERLAP, QUALITY, SECONDS, SR, TS_SECONDS, TS_SR, VIEW_FFT,
-                        VIEW_HOP, ZEROPAD, dips_take, dropout_take, hiss_take,
-                        long_wow_chunks, save_drop, tapesync_pair, wow_take,
-                        write_float_wav)
+from chip_smoke import (DRIFT, FFT, HUM, LONG_MINUTES, MAX_N, N_DIPS, N_DROPS, OVERLAP,
+                        QUALITY, SECONDS, SR, TS_SECONDS, TS_SR, VIEW_FFT, VIEW_HOP,
+                        ZEROPAD, dips_take, dropout_take, hiss_take, long_wow_chunks,
+                        save_drop, tapesync_pair, write_float_wav)
+from pyaudiorestoration_tpu_torch.utils.synth import F0, wow_take
 
 HOP = FFT // OVERLAP
 VIEW_TRAIL = ((0.5, F0), (SECONDS - 0.5, F0))  # chip_smoke's view --trail

@@ -18,6 +18,7 @@
     python -m pyaudiorestoration_tpu_torch listen <audio> [<restored>] [-o audition.html]
     python -m pyaudiorestoration_tpu_torch measure <audio> [<other>] [--metric ...]
     python -m pyaudiorestoration_tpu_torch doctor [--no-device]
+    python -m pyaudiorestoration_tpu_torch bench
 
 ``respeed`` has every form of ``pyaudiorestoration_tpu``'s subcommand, with
 its flags and defaults plus ``--device``: the portable trackers (``--mode``,
@@ -28,13 +29,17 @@ decoded).  ``respeed-batch`` restores independent takes over a
 ('files', 'time') mesh of ranks: ``--tier fused`` (the device plan and
 banded sinc per take) or ``--tier fixed`` (the fixed-length tier, which
 needs ``--f0``).  Run plainly it meshes over every visible card (one rank
-on the CPU); under ``torchrun`` it joins torchrun's group.  ``bench``
-exits with a "not ported yet" error.  Every other subcommand takes the JAX
-package's flags and defaults (its cli.py:93-279) plus ``--device``.  ``view``, ``listen`` and
+on the CPU); under ``torchrun`` it joins torchrun's group.  ``bench`` times
+the fused single take and the 8-take batch on the card and prints two JSON
+lines (:mod:`.bench`); without a card it exits 3.  Every other subcommand
+takes the JAX package's flags and defaults (its cli.py:93-279) plus
+``--device``.  ``view``, ``listen`` and
 ``tapesync --compare x.html`` write self-contained HTML pages whose images
 are rendered on the device; ``tapesync --compare x.png`` and ``renoise
 --preview`` draw matplotlib figures and need matplotlib.  ``doctor`` exits
-2 when unhealthy.  The file-to-file tools stream past 1 GiB decoded or with
+2 when unhealthy.  A missing input or a bad argument (``OSError``,
+``ValueError``) prints one ``error: ...`` line and exits 1, or raises with
+``-v``, which also logs at DEBUG.  The file-to-file tools stream past 1 GiB decoded or with
 ``--stream``.  The global ``--flac-out [BITS]`` / ``--flac-fast`` write
 FLAC instead of float WAV.  ``--device cuda`` (the default) raises without
 a card; ``--device cpu`` runs the plain PyTorch path.
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import sys
 
 
@@ -62,6 +68,7 @@ def build_parser():
 
     p = argparse.ArgumentParser(prog="pyaudiorestoration_tpu_torch",
                                 description="audio restoration on PyTorch/CUDA")
+    p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--flac-out", nargs="?", const=24, type=int, default=None,
                    metavar="BITS",
                    help="write outputs as FLAC (native encoder) instead of "
@@ -302,7 +309,7 @@ def build_parser():
                     choices=["all", "flutter", "snr", "spectral"])
     _add_device_arg(sp)
 
-    sub.add_parser("bench", help="run the benchmark (not ported yet)")
+    sub.add_parser("bench", help="time the fused take and the 8-take batch on the card")
 
     sp = sub.add_parser("doctor", help="bounded environment/device health "
                         "checks (codec, kernel build, device runtime)")
@@ -317,6 +324,8 @@ def build_parser():
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
+                        format="%(levelname)s | %(message)s")
     if args.flac_out is not None:
         from .utils import audio_io
 
@@ -330,9 +339,14 @@ def main(argv=None) -> int:
            "measure": _measure, "bench": _bench, "doctor": _doctor}[args.cmd]
     try:
         out = run(args)
-    except NotImplementedError as e:
-        print(f"error: not ported yet: {e}", file=sys.stderr)
-        return 2
+    except (OSError, ValueError) as e:
+        # user-facing input problems get a clean one-line exit, not a traceback
+        if args.verbose:
+            raise
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if args.cmd == "bench":  # its two JSON lines stay the last of stdout
+        return out
     print(json.dumps(out if isinstance(out, dict) else {"outputs": out}))
     if args.cmd == "doctor":
         return 0 if out["healthy"] else 2
@@ -661,7 +675,9 @@ def _measure(args):
 
 
 def _bench(args):
-    _not_ported("bench: the port's bench is ROADMAP queue 1 item 1")
+    from . import bench
+
+    return bench.main()
 
 
 def _doctor(args):
@@ -669,10 +685,6 @@ def _doctor(args):
 
     return run_doctor(device_timeout_s=args.device_timeout, skip_device=args.no_device,
                       device=args.device)
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what}; use python -m pyaudiorestoration_tpu")
 
 
 if __name__ == "__main__":

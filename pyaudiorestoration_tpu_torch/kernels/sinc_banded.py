@@ -327,6 +327,19 @@ def sinc_banded_gathered_plan(buf, s_lo, s_hi, n, base_frac, max_n: int, nt: int
 sinc_banded_gathered_plan.launches = 0  # kernel launches since the last reset
 
 
+def reset_launches():
+    """Set the launch count of every entry to 0."""
+    for entry in (sinc_banded, sinc_banded_plan, sinc_banded_gathered,
+                  sinc_banded_gathered_plan):
+        entry.launches = 0
+
+
+def launches():
+    """Launches of (K1, K2) since the last reset, over both entries of each."""
+    return (sinc_banded.launches + sinc_banded_plan.launches,
+            sinc_banded_gathered.launches + sinc_banded_gathered_plan.launches)
+
+
 def gather_windows(sig_flat, base_int, L: int, U: int):
     """(T, L) window buffer: row i is ``sig_flat[base_int_i - U + p]`` for p
     in [0, L), zero outside the signal (respeeder_device.py:565-567)."""

@@ -1,6 +1,7 @@
-"""Stage timers: ``log_duration`` for the port's ``resampling.run`` (the JAX
-package's ``utils/timing.log_duration``) and ``Stages`` for the ``timings=``
-dicts of the pipeline entries."""
+"""Stage timers: ``log_duration``, ``timed_log`` and ``last_duration`` (the
+JAX package's ``utils/timing.py``; ``log_duration`` times the port's
+``resampling.run``) and ``Stages`` for the ``timings=`` dicts of the
+pipeline entries."""
 
 from __future__ import annotations
 
@@ -10,14 +11,32 @@ import time
 
 import torch
 
+_records: dict[str, float] = {}
+
 
 @contextlib.contextmanager
 def log_duration(operation: str):
-    """Log ``operation`` at INFO on entry and its wall time at DEBUG on exit."""
+    """Log ``operation`` at INFO on entry and its wall time at DEBUG on exit,
+    and keep that time for :func:`last_duration`."""
     logging.info(operation)
     start = time.perf_counter()
     yield
-    logging.debug(f"{operation} took {time.perf_counter() - start:.2f} seconds")
+    duration = time.perf_counter() - start
+    _records[operation] = duration
+    logging.debug(f"{operation} took {duration:.2f} seconds")
+
+
+@contextlib.contextmanager
+def timed_log(method_name: str):
+    """Log ``method_name`` and its wall time at INFO on exit."""
+    start = time.perf_counter()
+    yield
+    logging.info(f"{method_name} {time.perf_counter() - start:0.2f}s")
+
+
+def last_duration(operation: str) -> float | None:
+    """Most recent wall time recorded for a stage, in seconds."""
+    return _records.get(operation)
 
 
 class Stages:

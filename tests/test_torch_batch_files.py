@@ -10,12 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from pyaudiorestoration_tpu import cli as cli_j
 from pyaudiorestoration_tpu.parallel import batch as jb
 from pyaudiorestoration_tpu.parallel import sharded as js
 from pyaudiorestoration_tpu.utils import audio_io, metrics
 from pyaudiorestoration_tpu_torch import cli
 from pyaudiorestoration_tpu_torch.parallel import batch as tb
 from pyaudiorestoration_tpu_torch.parallel import sharded as ts
+from tests.test_torch_cli_errors import error_exit
 
 torch.set_num_threads(2)
 
@@ -184,9 +186,12 @@ def test_cli_respeed_batch_on_cpu(takes, capsys):
 
 def test_cli_respeed_batch_fixed_tier_not_ported(takes, capsys):
     """The fixed-length tier is ported: it writes one file of the input's
-    length per take, and keeps the JAX CLI's --f0 requirement."""
-    with pytest.raises(ValueError, match="--f0"):
-        cli.main(["respeed-batch", takes[0], "--tier", "fixed", "--device", "cpu"])
+    length per take, and keeps the JAX CLI's --f0 requirement: without it
+    both CLIs exit 1 with the same error line."""
+    argv = ["respeed-batch", takes[0], "--tier", "fixed"]
+    want = error_exit(cli_j.main, argv, capsys)
+    assert want == (1, ["error: --tier fixed requires --f0"])
+    assert error_exit(cli.main, argv + ["--device", "cpu"], capsys) == want
     assert cli.main(["respeed-batch", *takes[:2], "--tier", "fixed", "--f0", "2048",
                      "--fft-size", str(NFFT), "--step", str(STEP), "--device", "cpu"]) == 0
     outs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["outputs"]

@@ -4,7 +4,8 @@ JAX package, and ``respeed --fast``, ``tapesync``, ``heal``,
 ``dropouts-batch``, ``respeed-batch --tier fixed``, the nine spectral and
 analysis tools, ``renoise --preview`` and the user-facing surface
 (``view``, ``listen``, ``measure``, ``doctor --no-device``, ``tapesync
---compare x.html``) run with ``--device cpu`` and both blocked.  The
+--compare x.html``) run with ``--device cpu`` and both blocked, and
+``bench`` exits 3 (no card here) without loading either.  The
 surface runs with matplotlib blocked as well, where ``tapesync --compare
 x.png`` raises matplotlib's ImportError.  The fixed tier's file entry
 over two ranks runs with both blocked in the caller's process and in the
@@ -259,6 +260,8 @@ def blocked_runs(tmp_path_factory):
     argvs += _surface_argvs(tmp_path_factory, dirs)
     d = dirs["respeed-batch --tier fixed"] = tmp_path_factory.mktemp("fixed_tier")
     argvs.append(_fixed_tier_inputs(d)[0] + ["--device", "cpu"])
+    dirs["bench"] = tmp_path_factory.mktemp("bench")
+    argvs.append(["bench"])
     runs = _run_many(argvs, JAX_NAMES)
     return {cmd: (dirs[cmd], run) for cmd, run in zip(dirs, runs)}
 
@@ -370,6 +373,15 @@ def _check_fixed_tier(outputs, want):
 def test_fixed_tier_runs_with_the_jax_package_blocked(blocked_runs):
     tmp_path, run = blocked_runs["respeed-batch --tier fixed"]
     _check_fixed_tier(_outputs(run)["outputs"], _fixed_tier_inputs(tmp_path)[1])
+
+
+def test_bench_exits_3_with_the_jax_package_blocked(blocked_runs):
+    """Its device probe finds no card: exit 3, one stderr line, no JSON
+    line; neither JAX nor the JAX package was loaded (``_run_many``)."""
+    _, run = blocked_runs["bench"]
+    assert run["rc"] == 3 and run["last"] == ""
+    lines = run["err"].strip().splitlines()
+    assert len(lines) == 1 and lines[0].startswith("bench: device runtime unavailable")
 
 
 # installed in every interpreter of the run, the spawned ranks included:

@@ -26,6 +26,7 @@ from pyaudiorestoration_tpu_torch import cli as cli_t
 from pyaudiorestoration_tpu_torch.ops import resampling as rs
 from pyaudiorestoration_tpu_torch.pipelines import renoiser as rt
 from pyaudiorestoration_tpu_torch.utils import audio_io as at
+from tests.test_torch_cli_errors import error_exit
 
 torch.set_num_threads(2)
 SR = 22050
@@ -220,7 +221,7 @@ def test_renoise_cli_matches_jax(tmp_path, capsys, extra):
 
 def test_renoise_preview_is_not_ported(tmp_path, capsys):
     """``--preview`` writes the figure (``--selection`` and ``--noise``), and
-    needs one of them, as in the JAX package."""
+    needs one of them: without, both CLIs exit 1 with the same error line."""
     pytest.importorskip("matplotlib")
     path = _write(tmp_path / "r.wav", _noisy_tone(SR))
     noise = _write(tmp_path / "n.wav", _noisy_tone(SR // 2, seed=9) * 0.02)
@@ -231,8 +232,10 @@ def test_renoise_preview_is_not_ported(tmp_path, capsys):
         assert rc == 0 and out == {"preview": png}
         with open(png, "rb") as f:
             assert f.read(8) == b"\x89PNG\r\n\x1a\n"
-    with pytest.raises(ValueError, match="preview needs --noise or --selection"):
-        cli_t.main(["renoise", path, "--preview", png, "--device", "cpu"])
+    argv = ["renoise", path, "--preview", png]
+    want = error_exit(cli_j.main, argv, capsys)
+    assert want == (1, ["error: preview needs --noise or --selection"])
+    assert error_exit(cli_t.main, argv + ["--device", "cpu"], capsys) == want
 
 
 def test_cuda_default_raises_without_a_card(tmp_path):

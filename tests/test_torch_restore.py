@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from pyaudiorestoration_tpu import cli as cli_j
 from pyaudiorestoration_tpu.pipelines import respeeder_device as rj
 from pyaudiorestoration_tpu.utils import audio_io
 from pyaudiorestoration_tpu_torch import cli
 from pyaudiorestoration_tpu_torch.pipelines import respeeder_device as rt
 from pyaudiorestoration_tpu_torch.utils.convert import plan_to_torch
 from tests.test_respeeder import tone_stability
+from tests.test_torch_cli_errors import error_exit, jax_argv
 
 torch.set_num_threads(2)
 
@@ -146,11 +148,13 @@ def test_cli_respeed_fast_on_cpu(tmp_path, capsys):
                                    "--device", "cpu"]])
 def test_cli_paths_not_ported_exit_clearly(argv, capsys):
     """Every form of respeed is ported, and respeed-batch's fixed-length
-    tier too: without --f0 it raises as JAX's CLI does; with it and no
-    card, the default device raises that torch sees none."""
+    tier too: without --f0 it exits 1 with the one error line that JAX's
+    CLI prints for the same argv; with it and no card, the default device
+    raises that torch sees none."""
     if "--f0" not in argv:
-        with pytest.raises(ValueError, match="--tier fixed requires --f0"):
-            cli.main(argv)
+        want = error_exit(cli_j.main, jax_argv(argv), capsys)
+        assert want == (1, ["error: --tier fixed requires --f0"])
+        assert error_exit(cli.main, argv, capsys) == want
     elif not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
             cli.main(argv)
