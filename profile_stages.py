@@ -7,7 +7,8 @@ on chip_smoke's synthesized inputs.
 
 ``fast``: ``restore_file_fast`` (``respeed --fast``), file to file.
 ``fused``: ``restore_fused_device`` on the stereo take (bench.py:130-133).
-``batch``: ``restore_fused_takes`` on 8 takes of it (bench.py:143-155).
+``batch``: ``restore_fused_takes`` on 8 takes of it cut to 16-30 s, with
+``lengths`` (the benchmark's ``tape192.batch8`` traffic, shorter).
 ``stream``: ``restore_file_streamed`` (the streamed tier) on chip_smoke's
 12-minute take (1.1 GB decoded), file to file, split into its passes.
 ``portable``: ``respeeder.restore_file`` (``respeed`` at the CLI defaults:
@@ -33,8 +34,10 @@ render with its download, and the page (PNG deflate, base64, write).
 into read, the two strips (STFT, render, PNG) and the two 16-bit WAVs
 with their base64, and the write.
 ``heuristic``, ``hpss``, ``renoise``, ``humspeed`` and ``expand`` time the
-entry itself through its ``timings=`` dict; the other paths mark stages
-around the entry's own pieces.
+entry itself through its ``timings=`` dict; ``fused`` and ``batch`` call
+the entry itself, host take in and grid out, under ``torch.profiler`` and
+read the program's own spans (``utils.timing.span``); the other paths mark
+stages around the entry's own pieces.
 The fused paths run K1 (backend "pallas"), as the card's "auto" does; the
 streamed and portable paths run K1 through their own resamplers.  The sinc
 stage of every path includes its grids: K1's plan entry builds them.
@@ -42,7 +45,10 @@ stage of every path includes its grids: K1's plan entry builds them.
 instructions a tap of each unrolled tap loop (a block of 7 taps, or two).
 
 Prints the card's name and power limit, then the median wall milliseconds of
-each stage (a synchronize after each), then one ``torch.profiler`` run of
+each stage (a synchronize after each; for ``fused`` and ``batch``, each
+program span's host milliseconds a call, the launch calls that start inside
+it and the device time of the kernels they launched), then one
+``torch.profiler`` run of
 the path's entry: its wall, the device's busy time (union of device events),
 its idle share of the wall, and the device time by kernel.  Imports no JAX.
 """
@@ -122,29 +128,6 @@ def fast_stages(src, rt, plan_to_torch, audio_io, dev):
     s.mark("download")
     audio_io.write_file(src, host, sr, nch, suffix="_res")
     s.mark("write")
-    return s.done()
-
-
-def fused_stages(x_host, shared_curve, NLs, NUs, band, rt, dev):
-    """One run of the fused path split into stages: rows of ``x_host`` are
-    the channels of one take (``shared_curve``, restore_fused_device) or
-    independent takes (restore_fused_takes), through K1."""
-    s = Stages()
-    x = torch.as_tensor(x_host, device=dev)
-    s.mark("upload")
-    rows = x[:1] if shared_curve else x
-    speeds = torch.stack([rt.track_speed_device(r, NLs, NUs, FFT, HOP, ZEROPAD,
-                                                band=band) for r in rows])
-    s.mark("track")
-    speeds, n, bi, bf = rt._plan_from_speeds(speeds, HOP, MAX_N, DRIFT)
-    s.mark("plan scans")
-    B = x.shape[0]
-    flat = rt._flatten_takes(x, speeds.expand(B, -1), n.expand(B, -1),
-                             bi.expand(B, -1), bf.expand(B, -1), MAX_N, QUALITY, DRIFT)
-    out = rt._sinc_segments_backend(flat, MAX_N, QUALITY, DRIFT, "pallas")
-    s.mark("sinc")  # K1's plan entry, its grids included
-    out.cpu()
-    s.mark("download")
     return s.done()
 
 
@@ -303,6 +286,48 @@ def listen_stages(paths, audio_io, dev):
     return s.done()
 
 
+PROGRAM_SPANS = ("respeeder.call", "respeeder.upload", "respeeder.track",
+                 "respeeder.plan", "respeeder.sinc")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+
+
+def device_work(prof):
+    """The kernels and copies of a finished profile: the ranges that
+    ``record_function`` mirrors on the device's timeline are no device work."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name not in PROGRAM_SPANS]
+
+
+def span_report(fn, runs: int):
+    """``runs`` calls of ``fn`` under ``torch.profiler``: for each of the
+    program's spans, its host milliseconds a call, the runtime's launch
+    calls that start inside it a call, and the device milliseconds a call
+    of the kernels those launches ran (matched by correlation id; K1's
+    launch from its own library may show no runtime call)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    kernel_us = {}
+    for e in device_work(prof):
+        if not e.name.startswith(("Memcpy", "Memset")):
+            kernel_us[e.id] = kernel_us.get(e.id, 0.0) + e.time_range.end - e.time_range.start
+    host = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA]
+    launches = [(e.time_range.start, e.id) for e in host if e.name.startswith(LAUNCH_CALLS)]
+    print(f"program spans, a call over {runs} calls: host ms, launch calls, device ms of "
+          f"the kernels they launched (all kernels: {sum(kernel_us.values()) / 1e3 / runs:.3f} "
+          f"ms, {len(launches) / runs:.1f} launch calls)")
+    for name in PROGRAM_SPANS:
+        spans = [(e.time_range.start, e.time_range.end) for e in host if e.name == name]
+        inside = [cid for t, cid in launches if any(s <= t <= e for s, e in spans)]
+        matched = [cid for cid in inside if cid in kernel_us]
+        host_ms = sum(e - s for s, e in spans) / 1e3 / runs
+        device_ms = sum(kernel_us[c] for c in matched) / 1e3 / runs
+        print(f"  {name:17s} n={len(spans) / runs:5.1f}  host {host_ms:9.3f} ms  launches "
+              f"{len(inside) / runs:8.1f}  device {device_ms:8.3f} ms ({len(matched)} of "
+              f"{len(inside)} launches matched)")
+
+
 def device_profile(fn):
     """One profiled run of ``fn``: wall, device busy time and idle share, and
     the device time by kernel."""
@@ -311,7 +336,7 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_work(prof)
     busy, cur = 0.0, None
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in events):
         if cur is None or s > cur[1]:
@@ -530,31 +555,35 @@ def main():
             NUs = torch.full((frames,), NU, dtype=torch.int32, device=dev)
             band = (NL - 1, NU + 1)
             if args.path == "fused":
-                x_host = np.ascontiguousarray(take.T)
+                x_host, lengths = np.ascontiguousarray(take.T), None
             else:
-                x_host = np.stack([take[:, 0] * (0.5 + 0.06 * i) for i in range(8)])
+                lengths = [int(SR * (16 + 2 * i)) for i in range(7)] + [take.shape[0]]
+                x_host = np.zeros((len(lengths), take.shape[0]), np.float32)
+                for i, L in enumerate(lengths):
+                    x_host[i, :L] = take[:L, 0] * (0.5 + 0.06 * i)
             print(f"{args.path}: input {x_host.shape}, {x_host.nbytes / 1e6:.1f} MB")
-
-            def stages():
-                return fused_stages(x_host, args.path == "fused", NLs, NUs, band, rt,
-                                    dev)
-
-            x_dev = torch.as_tensor(x_host, device=dev)
 
             def entry():
                 if args.path == "fused":
-                    return rt.restore_fused_device(x_dev, NLs, NUs, FFT, HOP, ZEROPAD,
-                                                   MAX_N, QUALITY, DRIFT, backend="pallas",
-                                                   band=band, device=dev)
-                B = x_dev.shape[0]
-                return rt.restore_fused_takes(x_dev, NLs.expand(B, -1), NUs.expand(B, -1),
-                                              FFT, HOP, ZEROPAD, MAX_N, QUALITY, DRIFT,
-                                              backend="pallas", band=band, device=dev)
-        stages()  # build and warm up
-        runs = [stages() for _ in range(args.runs)]
-        print(f"stages, ms (median of {args.runs}):")
-        for k in runs[0]:
-            print(f"  {k:10s} {statistics.median(r[k] for r in runs):9.3f}")
+                    out = rt.restore_fused_device(x_host, NLs, NUs, FFT, HOP, ZEROPAD, MAX_N,
+                                                  QUALITY, DRIFT, backend="pallas", band=band,
+                                                  device=dev)
+                else:
+                    B = x_host.shape[0]
+                    out = rt.restore_fused_takes(x_host, NLs.expand(B, -1), NUs.expand(B, -1),
+                                                 FFT, HOP, ZEROPAD, MAX_N, QUALITY, DRIFT,
+                                                 backend="pallas", band=band, lengths=lengths,
+                                                 device=dev)
+                return out.cpu()
+
+            entry()  # build and warm up
+            span_report(entry, args.runs)
+        if args.path not in ("fused", "batch"):
+            stages()  # build and warm up
+            runs = [stages() for _ in range(args.runs)]
+            print(f"stages, ms (median of {args.runs}):")
+            for k in runs[0]:
+                print(f"  {k:10s} {statistics.median(r[k] for r in runs):9.3f}")
         entry()
         device_profile(entry)
 

@@ -255,8 +255,8 @@ def run_tiers(mono, sr: int, device="cuda", input_name: str = "", k_pipe=(16, 6)
 
 def _rates(rtf, audio_s, cold, serial, pipe) -> dict:
     """bench.py's fields of one line, in its order, up to ``audio_s``."""
-    return {"value": round(rtf, 2), "unit": "x_realtime",
-            "vs_baseline": round(rtf / 100.0, 3),
+    value = round(rtf, 2)
+    return {"value": value, "unit": "x_realtime", "vs_baseline": round(value / 100.0, 3),
             "x_realtime_serialized": round(audio_s / min(serial), 2),
             "runs_serialized_x_realtime": [round(audio_s / t, 1) for t in serial],
             "pipelined_sets_x_realtime": [round(audio_s / t, 1) for t in pipe],

@@ -22,7 +22,8 @@ sources and flags (a stale build is never loaded), and bound with
 
 Every wrapper sends a CUDA tensor to its kernel (or raises) and a CPU tensor
 to its plain PyTorch version, which ``chip_smoke.py`` also holds each entry
-against on the card; each counts its kernel launches in ``.launches``.
+against on the card; each counts its kernel launches in the program's
+counters (``utils.timing``): ``k1.launches`` and ``k2.launches``.
 A failed build, load or launch raises :class:`KernelError`, and arguments
 a kernel cannot take raise :class:`KernelArgumentError` (also a
 ``ValueError``), so callers that tolerate data faults can tell them apart.
@@ -41,6 +42,8 @@ from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+
+from ..utils import timing
 
 __all__ = ["KernelError", "KernelArgumentError", "sinc_banded", "sinc_banded_plain",
            "sinc_banded_plan", "sinc_banded_plan_plain", "sinc_banded_gathered",
@@ -223,11 +226,8 @@ def sinc_banded(sig_flat, base_int, bs, rel, in_seg, nt: int, drift: int):
     _launch("sinc_banded_f32", dev, (
         sig_flat.data_ptr(), sig_flat.numel(), base_int.data_ptr(), bs.data_ptr(),
         rel.data_ptr(), in_seg.data_ptr(), out.data_ptr(), T, max_n, nt, drift))
-    sinc_banded.launches += 1
+    timing.count("k1.launches")
     return out
-
-
-sinc_banded.launches = 0  # kernel launches since the last reset
 
 
 def sinc_banded_gathered(buf, bs, rel, in_seg, nt: int, drift: int):
@@ -251,11 +251,8 @@ def sinc_banded_gathered(buf, bs, rel, in_seg, nt: int, drift: int):
     _launch("sinc_banded_gathered_f32", dev, (
         buf.data_ptr(), bs.data_ptr(), rel.data_ptr(), in_seg.data_ptr(),
         out.data_ptr(), T, max_n, nt, drift))
-    sinc_banded_gathered.launches += 1
+    timing.count("k2.launches")
     return out
-
-
-sinc_banded_gathered.launches = 0  # kernel launches since the last reset
 
 
 def sinc_banded_plan(sig_flat, base_int, s_lo, s_hi, n, base_frac, max_n: int,
@@ -288,11 +285,8 @@ def sinc_banded_plan(sig_flat, base_int, s_lo, s_hi, n, base_frac, max_n: int,
         sig_flat.data_ptr(), sig_flat.numel(), base_int.data_ptr(), s_lo.data_ptr(),
         s_hi.data_ptr(), n.data_ptr(), base_frac.data_ptr(), out.data_ptr(), T, max_n,
         nt, drift))
-    sinc_banded_plan.launches += 1
+    timing.count("k1.launches")
     return out
-
-
-sinc_banded_plan.launches = 0  # kernel launches since the last reset
 
 
 def sinc_banded_gathered_plan(buf, s_lo, s_hi, n, base_frac, max_n: int, nt: int,
@@ -320,24 +314,19 @@ def sinc_banded_gathered_plan(buf, s_lo, s_hi, n, base_frac, max_n: int, nt: int
     _launch("sinc_banded_gathered_plan_f32", dev, (
         buf.data_ptr(), s_lo.data_ptr(), s_hi.data_ptr(), n.data_ptr(),
         base_frac.data_ptr(), out.data_ptr(), T, max_n, nt, drift))
-    sinc_banded_gathered_plan.launches += 1
+    timing.count("k2.launches")
     return out
 
 
-sinc_banded_gathered_plan.launches = 0  # kernel launches since the last reset
-
-
 def reset_launches():
-    """Set the launch count of every entry to 0."""
-    for entry in (sinc_banded, sinc_banded_plan, sinc_banded_gathered,
-                  sinc_banded_gathered_plan):
-        entry.launches = 0
+    """Set the launch counts of K1 and K2 to 0."""
+    timing.reset_counters("k1.launches", "k2.launches")
 
 
 def launches():
     """Launches of (K1, K2) since the last reset, over both entries of each."""
-    return (sinc_banded.launches + sinc_banded_plan.launches,
-            sinc_banded_gathered.launches + sinc_banded_gathered_plan.launches)
+    c = timing.counters()
+    return c.get("k1.launches", 0), c.get("k2.launches", 0)
 
 
 def gather_windows(sig_flat, base_int, L: int, U: int):

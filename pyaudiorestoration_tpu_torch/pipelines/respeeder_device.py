@@ -46,7 +46,7 @@ from ..kernels.sinc_banded import (fixed_order_cumsum, gather_windows,
 from ..models.trackers import masked_peak_refine
 from ..ops.fourier import get_window
 from ..ops.fourier import reflect_pad as _reflect_pad
-from ..utils import audio_io, streaming
+from ..utils import audio_io, streaming, timing
 from ..utils.convert import plan_to_torch
 from ..utils.device import resolve_device
 
@@ -62,6 +62,15 @@ __all__ = ["track_speed_device", "track_peaks_span", "banded_refined_chunk",
 
 # ---------------------------------------------------------------- tracking
 
+def _upload(a, dtype, device):
+    """``torch.as_tensor(a, dtype, device)``, counting a host array handed to
+    the device as one of ``respeeder.uploads`` (a tensor already of the
+    device's type is not counted)."""
+    if not isinstance(a, torch.Tensor) or a.device.type != device.type:
+        timing.count("respeeder.uploads")
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
 @functools.lru_cache(maxsize=16)
 def _banded_dft_matrix(n_fft: int, zeropad: int, lo: int, hi: int) -> np.ndarray:
     """(n_fft, 2*(hi-lo)) real DFT matrix computing rFFT bins [lo, hi) of the
@@ -74,7 +83,7 @@ def _banded_dft_matrix(n_fft: int, zeropad: int, lo: int, hi: int) -> np.ndarray
 
 def _frames(xs, n_fft: int, step: int, count: int, window_name: str):
     """Windowed frames (..., count, n_fft); frame p starts at xs[..., p*step]."""
-    window = torch.as_tensor(get_window(window_name, n_fft), device=xs.device)
+    window = _upload(get_window(window_name, n_fft), None, xs.device)
     return xs.unfold(-1, n_fft, step)[..., :count, :] * window
 
 
@@ -90,8 +99,7 @@ def banded_refined_chunk(xs, nl, nu, n_fft: int, step: int, zeropad: int,
     nb = hi - lo
     # float64 on the host (the float32 cos/sin times a float64 scale); cast
     # to float32 as jnp.asarray does in the reference
-    dft = torch.as_tensor(_banded_dft_matrix(n_fft, zeropad, lo, hi),
-                          dtype=torch.float32, device=xs.device)
+    dft = _upload(_banded_dft_matrix(n_fft, zeropad, lo, hi), torch.float32, xs.device)
     ri = torch.matmul(_frames(xs, n_fft, step, chunk, window_name), dft)
     mag = torch.sqrt(ri[..., :nb] ** 2 + ri[..., nb:] ** 2) + 1e-7
     return masked_peak_refine(mag, nl - lo, nu - lo, bin_offset=float(lo))
@@ -145,12 +153,13 @@ def track_speed_device(x, NL, NU, n_fft: int, step: int, zeropad: int = 1,
                        inv_limbs=None):
     """Reflect-centred framing + banded peak tracking + speed normalisation,
     all on ``x``'s device.  Returns speeds (T,) centred on ~1.0."""
-    xp = _reflect_pad(x.to(torch.float32), n_fft // 2)
-    n_frames = (xp.shape[0] - n_fft) // step + 1
-    refined = track_peaks_span(xp, NL, NU, n_frames, n_fft, step, zeropad,
-                               window_name, chunk_frames, band)
-    return normalize_speeds(refined, center=log_center_for_band(band),
-                            frame_mask=frame_mask, inv_limbs=inv_limbs)
+    with timing.span("respeeder.track"):
+        xp = _reflect_pad(x.to(torch.float32), n_fft // 2)
+        n_frames = (xp.shape[0] - n_fft) // step + 1
+        refined = track_peaks_span(xp, NL, NU, n_frames, n_fft, step, zeropad,
+                                   window_name, chunk_frames, band)
+        return normalize_speeds(refined, center=log_center_for_band(band),
+                                frame_mask=frame_mask, inv_limbs=inv_limbs)
 
 
 def log_center_for_band(band):
@@ -479,10 +488,11 @@ def run_banded_sinc(sig, speeds, n, base_int, base_frac, max_n: int,
     (C, T, max_n) or (T, max_n)."""
     x = sig if sig.dim() == 2 else sig[None]
     C = x.shape[0]
-    flat = _flatten_takes(
-        x, speeds.expand(C, -1), n.expand(C, -1), base_int.expand(C, -1),
-        base_frac.expand(C, -1), max_n, nt, drift)
-    out = _sinc_segments_backend(flat, max_n, nt, drift, backend).reshape(C, -1, max_n)
+    with timing.span("respeeder.sinc"):
+        flat = _flatten_takes(
+            x, speeds.expand(C, -1), n.expand(C, -1), base_int.expand(C, -1),
+            base_frac.expand(C, -1), max_n, nt, drift)
+        out = _sinc_segments_backend(flat, max_n, nt, drift, backend).reshape(C, -1, max_n)
     return out if sig.dim() == 2 else out[0]
 
 
@@ -601,26 +611,27 @@ def _plan_from_speeds(speeds, step: int, max_n: int, drift: int):
     Returns (clipped speeds, n, base_int, base_frac), the last three
     (..., F - 1).  The clip bounds round to float32 as JAX rounds
     weak-typed Python floats."""
-    # |anchor - k| <= drift needs |1/speed - 1| <= (drift-2)/max_n: a take
-    # whose wow exceeds what ``drift`` budgets gets a clipped curve
-    d_bound = min(0.9, max(drift - 2, 1) / max_n)
-    speeds = torch.clamp(speeds, min=_f32(1.0 / (1.0 + d_bound)),
-                         max=_f32(1.0 / (1.0 - d_bound)))
-    s_lo, s_hi = speeds[..., :-1], speeds[..., 1:]
-    n_raw = step * (s_lo + s_hi) / 2.0
-    # dithered output counts n_i = round(cum_i) - round(cum_{i-1}), the
-    # cumsum held as an exact (int, frac) pair
-    ci, cf = _split_cumsum_exclusive(n_raw)
-    whole = torch.floor(cf + n_raw)
-    inc_i = ci + whole.to(torch.int32)
-    inc_f = cf + n_raw - whole
-    rounded = inc_i + (inc_f >= 0.5).to(torch.int32)
-    n = torch.diff(rounded, dim=-1, prepend=torch.zeros_like(rounded[..., :1]))
-    n = torch.clamp(n, 0, max_n)
-    A = segment_advances(s_lo.reshape(-1), s_hi.reshape(-1), n.reshape(-1),
-                         max_n).reshape(n.shape)
-    base_int, base_frac = _split_cumsum_exclusive(A)
-    return speeds, n, base_int, base_frac
+    with timing.span("respeeder.plan"):
+        # |anchor - k| <= drift needs |1/speed - 1| <= (drift-2)/max_n: a
+        # take whose wow exceeds what ``drift`` budgets gets a clipped curve
+        d_bound = min(0.9, max(drift - 2, 1) / max_n)
+        speeds = torch.clamp(speeds, min=_f32(1.0 / (1.0 + d_bound)),
+                             max=_f32(1.0 / (1.0 - d_bound)))
+        s_lo, s_hi = speeds[..., :-1], speeds[..., 1:]
+        n_raw = step * (s_lo + s_hi) / 2.0
+        # dithered output counts n_i = round(cum_i) - round(cum_{i-1}), the
+        # cumsum held as an exact (int, frac) pair
+        ci, cf = _split_cumsum_exclusive(n_raw)
+        whole = torch.floor(cf + n_raw)
+        inc_i = ci + whole.to(torch.int32)
+        inc_f = cf + n_raw - whole
+        rounded = inc_i + (inc_f >= 0.5).to(torch.int32)
+        n = torch.diff(rounded, dim=-1, prepend=torch.zeros_like(rounded[..., :1]))
+        n = torch.clamp(n, 0, max_n)
+        A = segment_advances(s_lo.reshape(-1), s_hi.reshape(-1), n.reshape(-1),
+                             max_n).reshape(n.shape)
+        base_int, base_frac = _split_cumsum_exclusive(A)
+        return speeds, n, base_int, base_frac
 
 
 def _fused_plan(mono, NL, NU, n_fft: int, step: int, zeropad: int, max_n: int,
@@ -745,14 +756,17 @@ def restore_fused_device(x, NL, NU, n_fft: int, step: int, zeropad: int,
     :func:`_sinc_backend`.  Returns the (T, max_n) padded grid, with a
     leading channel axis for (C, n) input; entries with k >= n_i are zero."""
     dev = resolve_device(device)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    NL = torch.as_tensor(NL, dtype=torch.int32, device=dev)
-    NU = torch.as_tensor(NU, dtype=torch.int32, device=dev)
-    mono = x[0] if x.dim() == 2 else x
-    speeds, n, base_int, base_frac = _fused_plan(
-        mono, NL, NU, n_fft, step, zeropad, max_n, nt, drift, window_name, band)
-    return run_banded_sinc(x, speeds, n, base_int, base_frac, max_n, nt, drift,
-                           backend)
+    timing.count("respeeder.calls")
+    with timing.span("respeeder.call"):
+        with timing.span("respeeder.upload"):
+            x = _upload(x, torch.float32, dev)
+            NL = _upload(NL, torch.int32, dev)
+            NU = _upload(NU, torch.int32, dev)
+        mono = x[0] if x.dim() == 2 else x
+        speeds, n, base_int, base_frac = _fused_plan(
+            mono, NL, NU, n_fft, step, zeropad, max_n, nt, drift, window_name, band)
+        return run_banded_sinc(x, speeds, n, base_int, base_frac, max_n, nt, drift,
+                               backend)
 
 
 def _restore_fused_takes(xb, NLb, NUb, n_fft: int, step: int, zeropad: int,
@@ -761,18 +775,20 @@ def _restore_fused_takes(xb, NLb, NUb, n_fft: int, step: int, zeropad: int,
     """:func:`restore_fused_takes`, also returning the plan ``(n, base_int,
     base_frac)``, each (B, T)."""
     dev = resolve_device(device)
-    xb = torch.as_tensor(xb, dtype=torch.float32, device=dev)
-    NLb = torch.as_tensor(NLb, dtype=torch.int32, device=dev)
-    NUb = torch.as_tensor(NUb, dtype=torch.int32, device=dev)
+    with timing.span("respeeder.upload"):
+        xb = _upload(xb, torch.float32, dev)
+        NLb = _upload(NLb, torch.int32, dev)
+        NUb = _upload(NUb, torch.int32, dev)
+        fmasks = invs = [None] * xb.shape[0]
+        if lengths is not None:
+            lengths_h = np.asarray(lengths, np.int64)
+            invs = _upload(inv_count_limbs(lengths_h // step + 1), None, dev)
+            L = _upload(lengths_h, torch.int32, dev)[:, None]
     B, N = xb.shape
     xt = xs = xb
-    fmasks = invs = [None] * B
     if lengths is not None:
         # per-take boundary regeneration: tracking frames that cross a take's
         # end see the solo run's reflect pad, sinc taps past it read zero
-        lengths_h = np.asarray(lengths, np.int64)
-        invs = torch.as_tensor(inv_count_limbs(lengths_h // step + 1), device=dev)
-        L = torch.as_tensor(lengths_h, dtype=torch.int32, device=dev)[:, None]
         pos = torch.arange(N, dtype=torch.int32, device=dev)[None, :]
         src = torch.where(pos < L, pos, torch.clamp(2 * (L - 1) - pos, 0, N - 1))
         xt = torch.gather(xb, 1, src.to(torch.int64))
@@ -787,8 +803,9 @@ def _restore_fused_takes(xb, NLb, NUb, n_fft: int, step: int, zeropad: int,
                            inv_limbs=invs[b])
         for b in range(B)])
     speeds, nn, bi, bf = _plan_from_speeds(speeds, step, max_n, drift)
-    flat = _flatten_takes(xs, speeds, nn, bi, bf, max_n, nt, drift)
-    out = _sinc_segments_backend(flat, max_n, nt, drift, backend)
+    with timing.span("respeeder.sinc"):
+        flat = _flatten_takes(xs, speeds, nn, bi, bf, max_n, nt, drift)
+        out = _sinc_segments_backend(flat, max_n, nt, drift, backend)
     return out.reshape(B, -1, max_n), nn, bi, bf
 
 
@@ -810,9 +827,11 @@ def restore_fused_takes(xb, NLb, NUb, n_fft: int, step: int, zeropad: int,
     pad past its end, the centring mean runs over its own frames
     (markers.py:190-192) and sinc taps past its end read zero; its first
     ``length // step`` segments are bit-identical to the solo run's."""
-    return _restore_fused_takes(xb, NLb, NUb, n_fft, step, zeropad, max_n, nt,
-                                drift, window_name, backend, band, lengths,
-                                device)[0]
+    timing.count("respeeder.calls")
+    with timing.span("respeeder.call"):
+        return _restore_fused_takes(xb, NLb, NUb, n_fft, step, zeropad, max_n, nt,
+                                    drift, window_name, backend, band, lengths,
+                                    device)[0]
 
 
 def restore_file_streamed(audio_path, f0_hz=None, tolerance_st: float = 1.0,

@@ -194,9 +194,9 @@ def test_wrapper_uses_plain_version_on_cpu_and_checks_inputs():
                                        torch.from_numpy(speeds[1:T + 1]), p["n"][:T],
                                        p["base_frac"][:T], p["max_n"])
     args = (torch.from_numpy(sig), p["base_int"][:T], bs, rel, in_seg)
-    before = kb.sinc_banded.launches
+    before = kb.launches()
     out = kb.sinc_banded(*args, 16, drift)
-    assert kb.sinc_banded.launches == before  # no kernel launch on the CPU
+    assert kb.launches() == before  # no kernel launch on the CPU
     assert torch.equal(out, kb.sinc_banded_plain(*args, 16, drift))
     with pytest.raises(ValueError):
         kb.sinc_banded(args[0].double(), *args[1:], 16, drift)
@@ -272,9 +272,9 @@ def test_gathered_wrapper_uses_plain_version_on_cpu_and_checks_inputs():
     buf, bs, rel, nt, drift, max_n = _weight_inputs("mixed")
     args = [torch.from_numpy(buf), torch.from_numpy(bs), torch.from_numpy(rel),
             torch.ones(bs.shape, dtype=torch.bool)]
-    before = kb.sinc_banded_gathered.launches
+    before = kb.launches()
     out = kb.sinc_banded_gathered(*args, nt, drift)
-    assert kb.sinc_banded_gathered.launches == before  # no kernel launch on the CPU
+    assert kb.launches() == before  # no kernel launch on the CPU
     assert torch.equal(out, kb.sinc_shift_mac(*args, max_n, nt, drift))
     bad = {0: args[0][:, :-1], 1: args[1].double(), 2: args[2][:-1],
            3: args[3].float()}
@@ -375,9 +375,9 @@ def test_plan_wrappers_use_plain_version_on_cpu_and_check_inputs(entry):
         fn, plain = kb.sinc_banded_gathered_plan, kb.sinc_banded_gathered_plan_plain
         head = [kb.gather_windows(t[0], t[1], max_n + 2 * U, U)]
     plan = t[2:]
-    before = fn.launches
+    before = kb.launches()
     out = fn(*head, *plan, max_n, nt, drift)
-    assert fn.launches == before  # no kernel launch on the CPU
+    assert kb.launches() == before  # no kernel launch on the CPU
     assert torch.equal(out, plain(*head, *plan, max_n, nt, drift))
     bad = [plan[0].double(), plan[1][:-1], plan[2].long(), plan[3][:, None]]
     for i, b in enumerate(bad):
