@@ -5,13 +5,24 @@ Everything that belongs to a configuration, a traffic mix, an entry or a
 metric is found by name under ``benchmark/``:
 
     configs/<config>.json    the deployment's sizes and take recipe
-    traffic/<traffic>.json   the entry, the take lengths, the pool and calls
+    traffic/<traffic>.json   the entry, the pipeline, the take lengths, the
+                             pool and calls
     entries/<entry>.py       ``prepare(params, dev, pool) -> call``, ``answers``
+    pipelines/<name>.py      the traffic's ``"pipeline"``: ``make_pool``,
+                             ``params``, ``reference``, ``judge`` over
+                             ``NUMBERS``, ``work`` and ``control``
     metrics/<metric>.py      ``read(run) -> value or None``
     limits/<cell>.json       the limit of each number compared
 
+A traffic file that names no pipeline takes ``pipelines/wow_flutter.py`` of
+this benchmark: the wow/flutter takes as host arrays, judged as padded
+grids against the fused entries' reference.  A pipeline that writes files
+writes them under ``build/benchmark_files/<cell>/`` of the checkout, which
+the run empties before its set-up and removes after its check.
+
 The window is a closed loop: one call at a time, each starting when the
-last one's output is in host memory, cycling through the pool.
+last one has handed back its output (in host memory, or in a file),
+cycling through the pool.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import importlib.util
 import json
 import random
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -31,6 +43,7 @@ from types import SimpleNamespace
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "pyaudiorestoration_tpu")
+DEFAULT_PIPELINE = "wow_flutter"
 
 
 class CellError(RuntimeError):
@@ -60,7 +73,7 @@ def load_module(bench_dir: Path, kind: str, name: str):
 
 def cell_files(bench_dir: Path, spec: dict, name: str) -> SimpleNamespace:
     """The cell ``name`` of ``spec`` with its configuration, traffic,
-    limits and entry, each found by name."""
+    limits, entry and pipeline, each found by name."""
     cells = [w for w in spec["workloads"] if w["name"] == name]
     if not cells:
         raise CellError(f"no workload {name!r} in BENCHMARK.json")
@@ -69,7 +82,15 @@ def cell_files(bench_dir: Path, spec: dict, name: str) -> SimpleNamespace:
     traffic = load_json(bench_dir / "traffic" / f"{cell['traffic']}.json")
     limits = load_json(bench_dir / "limits" / f"{name}.json")
     entry = load_module(bench_dir, "entries", traffic["entry"])
-    return SimpleNamespace(cell=cell, cfg=cfg, traffic=traffic, limits=limits, entry=entry)
+    pipeline = (load_module(bench_dir, "pipelines", traffic["pipeline"]) if "pipeline" in traffic
+                else load_module(BENCH_DIR, "pipelines", DEFAULT_PIPELINE))
+    return SimpleNamespace(cell=cell, cfg=cfg, traffic=traffic, limits=limits, entry=entry,
+                           pipeline=pipeline)
+
+
+def files_dir(bench_dir: Path, name: str) -> Path:
+    """The directory of the files that cell ``name``'s pipeline writes."""
+    return bench_dir.parent / "build" / "benchmark_files" / name
 
 
 def metrics_of(spec: dict, kind: str, name: str) -> list:
@@ -156,25 +177,24 @@ def _traced_calls(call, pool, n_calls: int, keep, cuda: bool):
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t0: float,
              bench_dir: Path = BENCH_DIR, device: str = "cuda", spec: dict | None = None):
     """One run of cell ``name``; returns (result dict, compared numbers
-    with their limits, the largest reading of every number of
-    ``compare.judge`` over the answers).  ``t0``: ``time.perf_counter()``
+    with their limits, the largest reading of every number of the
+    pipeline's ``judge`` over the answers).  ``t0``: ``time.perf_counter()``
     at the process's start."""
     import torch
 
-    from benchmark.reference import compare
-    from benchmark.reference.restore import Reference
-
-    from . import takes
     from . import trace as tr
     from .peaks import peaks_for
 
     spec = spec or load_json(bench_dir.parent / "BENCHMARK.json")
     c = cell_files(bench_dir, spec, name)
+    pipe = c.pipeline
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    files = files_dir(bench_dir, name)
+    shutil.rmtree(files, ignore_errors=True)
 
-    pool = takes.make_pool(c.cfg, c.traffic, seed, dev)
-    params = takes.plan_params(pool[0]["x"][0], c.cfg)
+    pool = pipe.make_pool(c.cfg, c.traffic, seed, dev, files)
+    params = pipe.params(pool, c.cfg)
     call = c.entry.prepare(params, dev, pool)
     for i in range(c.traffic["warm_calls"]):
         call(pool[i % len(pool)])
@@ -228,19 +248,19 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t0: float,
 
     def reference(item):
         if item not in refs:
-            refs[item] = [Reference(take, params, dev) for take in c.entry.takes(pool[item])]
+            refs[item] = [pipe.reference(take, params, dev) for take in c.entry.takes(pool[item])]
         return refs[item]
 
     worst, diag = {}, []
     for item, out in sorted(kept.items()):
         answers = c.entry.answers(pool[item], out, params)
-        for j, (ref, grid) in enumerate(zip(reference(item), answers)):
-            verdict = compare.judge(grid, ref)
-            ref.streams.clear()  # the reference's worked-out streams, judged once
-            for k in compare.NUMBERS:
+        for j, (ref, answer) in enumerate(zip(reference(item), answers)):
+            verdict = pipe.judge(answer, ref)
+            for k in pipe.NUMBERS:
                 worst[k] = max(worst.get(k, 0.0), verdict[k])
             diag.append({"item": item, "take": j, **verdict})
     del kept
+    shutil.rmtree(files, ignore_errors=True)
     for d in diag:
         log(f"{name}: answer {d}")
     q = statistics.quantiles(lat, n=10) if len(lat) > 1 else lat * 9
@@ -263,9 +283,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t0: float,
     result = {"correct": correct, "attempted": attempted, "failed": failed}
     if trace:
         device_ev, host_ev, window, syncs = pieces
-        work = [{"inputs": sum(int(r.x.numel()) for r in reference(item)),
-                 "outputs": sum(int(r.x.shape[0] * r.counts().sum()) for r in reference(item))}
-                for item in traced_items]
+        work = []
+        for item in traced_items:
+            takes = [pipe.work(r) for r in reference(item)]
+            work.append({k: sum(w[k] for w in takes) for k in ("inputs", "outputs")})
         run.trace = tr.Trace(device=device_ev, host=host_ev, window=window,
                              calls=len(lat), syncs=syncs, work=work, nt=params["nt"],
                              peaks=peaks_for(kind))

@@ -16,7 +16,10 @@ compared beside its limit; the same numbers end stderr.
 It exits 2 with no result where torch sees no CUDA card or fewer than the
 cell asks for, and 1 where the cell cannot run or a module of JAX or of
 the JAX package is loaded.  Build and kernel caches stay inside the
-checkout, under ``build/``.
+checkout, under ``build/``.  The process runs torch's host operations on
+one thread (``OMP_NUM_THREADS=1``, ``torch.set_num_threads(1)``): the
+load on the host is this one thread and the CUDA driver's, whatever the
+machine has, and no pool of idle workers spins beside the calls.
 """
 
 import time
@@ -34,6 +37,8 @@ sys.path.insert(0, str(ROOT))
 for var, sub in (("TRITON_CACHE_DIR", "triton"), ("TORCH_EXTENSIONS_DIR", "torch_extensions"),
                  ("CUDA_CACHE_PATH", "cuda_cache")):
     os.environ[var] = str(ROOT / "build" / "benchmark_cache" / sub)
+for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+    os.environ[var] = "1"
 
 
 def main(argv=None) -> int:
@@ -53,6 +58,7 @@ def main(argv=None) -> int:
             raise harness.CellError(f"no workload {args.workload!r} in BENCHMARK.json")
         import torch
 
+        torch.set_num_threads(1)
         if not torch.cuda.is_available() or torch.cuda.device_count() < chips[0]:
             harness.log(f"needs {chips[0]} CUDA card(s); torch sees "
                         f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")

@@ -7,7 +7,7 @@ import re
 import time
 
 import pytest
-from conftest import BENCH, ROOT, TINY_LIMITS
+from conftest import BENCH, ROOT, TINY_LIMITS, with_kept_aside
 
 from benchmark.lib import harness
 
@@ -15,15 +15,16 @@ SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
+@pytest.mark.parametrize("cell", [w["name"] for w in with_kept_aside(SPEC)["workloads"]])
 def test_cell_files_found_by_name(cell):
-    c = harness.cell_files(BENCH, SPEC, cell)
+    spec = with_kept_aside(SPEC)
+    c = harness.cell_files(BENCH, spec, cell)
     assert callable(c.entry.prepare) and callable(c.entry.answers) and callable(c.entry.takes)
     assert c.limits and all(v > 0 for v in c.limits.values())
     assert c.traffic["pool"] >= 2 and c.traffic["trace_calls"] >= c.traffic["pool"]
-    e2e = {m["name"] for m in harness.metrics_of(SPEC, "end_to_end", cell)}
+    e2e = {m["name"] for m in harness.metrics_of(spec, "end_to_end", cell)}
     assert "setup_s" in e2e and len(e2e) >= 2
-    assert harness.metrics_of(SPEC, "per_layer", cell)
+    assert harness.metrics_of(spec, "per_layer", cell)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in SPEC["end_to_end"] + SPEC["per_layer"]])
