@@ -723,7 +723,8 @@ def _restore_padded(mono, sig, sr: int, f0_hz: float, tolerance_st: float,
     speeds = track_speed_device(mono, NLs, NUs, fft_size, hop, zeropad,
                                 band=(NL - 1, NU + 1))
     speeds_np = speeds.cpu().numpy()  # ~T floats, the only mid-path download
-    plan = plan_positions_fast(speeds_np, hop, n)
+    with timing.span("respeeder.host_plan"):
+        plan = plan_positions_fast(speeds_np, hop, n)
     p = plan_to_torch(plan, dev)
     padded = run_banded_sinc(sig, speeds, p["n"], p["base_int"], p["base_frac"],
                              p["max_n"], int(sinc_quality), _drift_bucket(p["drift"]))
@@ -909,9 +910,19 @@ def restore_file_streamed(audio_path, f0_hz=None, tolerance_st: float = 1.0,
     under the JAX package's keys (``pass1_s``, ``plan_s``, ``pass2_s`` and
     their read / device / write parts) plus ``n``/``sr``/``n_out``.
     Returns the output path.
+
+    Spans (``utils/timing.span``, recorded while a profiler runs):
+    ``respeeder.read`` each codec read with its edge reflect and zero pad,
+    ``respeeder.track`` each pass-1 block's tracking and download and the
+    curve's centring, ``respeeder.host_plan`` the plan, ``respeeder.tile``
+    each pass-2 tile from its transpose to its download (K1's
+    ``respeeder.sinc`` inside), ``respeeder.write`` each append and the
+    writer's close.  Counters: ``respeeder.streamed`` a call,
+    ``respeeder.blocks`` a pass-1 block, ``respeeder.tiles`` a pass-2 tile.
     """
     if timings is None:
         timings = {}
+    timing.count("respeeder.streamed")
     dev = resolve_device(device)
     hop = fft_size // fft_overlap
     nt = int(sinc_quality)
@@ -920,7 +931,9 @@ def restore_file_streamed(audio_path, f0_hz=None, tolerance_st: float = 1.0,
         n = int(reader.frames)
         channels = list(use_channels) if use_channels else list(range(num_channels))
         if f0_hz is None:
-            f0_hz = _probe_f0(reader.read(0, min(n, 1 << 18))[:, channel], sr)
+            with timing.span("respeeder.read"):
+                head = reader.read(0, min(n, 1 << 18))[:, channel]
+            f0_hz = _probe_f0(head, sr)
         NL, NU = _band_limits(f0_hz, tolerance_st, fft_size, zeropad, sr)
         pad = fft_size // 2
         n_frames = (n + 2 * pad - fft_size) // hop + 1
@@ -963,46 +976,52 @@ def restore_file_streamed(audio_path, f0_hz=None, tolerance_st: float = 1.0,
                 lo = t0 * hop - pad
                 hi = (t1 - 1) * hop - pad + fft_size
                 rlo, rhi = max(0, lo), min(n, hi)
-                tr = time.perf_counter()
-                blk = reader.read(rlo, rhi - rlo)[:, channel].astype(np.float32)
-                t_read += time.perf_counter() - tr
-                if lo < 0 or hi > n:  # reflect only at the true file edges
-                    blk = np.pad(blk, (rlo - lo, hi - rhi), mode="reflect")
-                blk = np.pad(blk, (0, span_need - len(blk)))
+                timing.count("respeeder.blocks")
+                with timing.span("respeeder.read"):
+                    tr = time.perf_counter()
+                    blk = reader.read(rlo, rhi - rlo)[:, channel].astype(np.float32)
+                    t_read += time.perf_counter() - tr
+                    if lo < 0 or hi > n:  # reflect only at the true file edges
+                        blk = np.pad(blk, (rlo - lo, hi - rhi), mode="reflect")
+                    blk = np.pad(blk, (0, span_need - len(blk)))
                 td = time.perf_counter()
-                refined = track_peaks_span(
-                    torch.as_tensor(blk, device=dev), NLs, NUs, frames_per_block,
-                    fft_size, hop, zeropad, band=(NL - 1, NU + 1)).cpu().numpy()
+                with timing.span("respeeder.track"):
+                    refined = track_peaks_span(
+                        torch.as_tensor(blk, device=dev), NLs, NUs, frames_per_block,
+                        fft_size, hop, zeropad, band=(NL - 1, NU + 1)).cpu().numpy()
                 t_dev += time.perf_counter() - td
                 refined_parts.append(refined[: t1 - t0])
             timings["pass1_read_s"] = t_read
             timings["pass1_device_s"] = t_dev  # incl. block upload + curve download
-            speeds = normalize_speeds(
-                torch.as_tensor(np.concatenate(refined_parts), device=dev),
-                center=log_center_for_band((NL - 1, NU + 1))).cpu().numpy()
+            with timing.span("respeeder.track"):
+                speeds = normalize_speeds(
+                    torch.as_tensor(np.concatenate(refined_parts), device=dev),
+                    center=log_center_for_band((NL - 1, NU + 1))).cpu().numpy()
             if resume:
                 np.savez(ckpt_path, key=ckpt_key, speeds=speeds)
             timings["pass1_s"] = time.perf_counter() - t_start
 
         # ---- global position plan (host, frame-rate sized)
         t_start = time.perf_counter()
-        plan = plan_positions_fast(speeds, hop, n)
-        drift = _drift_bucket(plan["drift"])
-        U = nt + drift
-        max_n = int(plan["max_n"])
-        T = len(plan["n"])
-        seg_tile = min(seg_tile, T)  # a take shorter than a tile pads no rows
+        with timing.span("respeeder.host_plan"):
+            plan = plan_positions_fast(speeds, hop, n)
+            drift = _drift_bucket(plan["drift"])
+            U = nt + drift
+            max_n = int(plan["max_n"])
+            T = len(plan["n"])
+            seg_tile = min(seg_tile, T)  # a take shorter than a tile pads no rows
+            # pass 2 tiles the segment axis and re-reads input windows, each
+            # padded to one fixed length for the whole file (zeros past the
+            # real span never fall inside a window)
+            bi_all = plan["base_int"]
+            span_fix = max(
+                int(bi_all[min(T, a + seg_tile) - 1]) - int(bi_all[a])
+                for a in range(0, T, seg_tile)) + max_n + 2 * U + 2
         speeds32 = speeds.astype(np.float32)
         out_path = out_base + "." + audio_io.out_ext()
-        # ---- pass 2: tile the segment axis, re-read input windows, append.
-        # The read span is padded to one fixed length for the whole file
-        # (zeros past the real span never fall inside a window)
-        bi_all = plan["base_int"]
-        span_fix = max(
-            int(bi_all[min(T, a + seg_tile) - 1]) - int(bi_all[a])
-            for a in range(0, T, seg_tile)) + max_n + 2 * U + 2
         timings["plan_s"] = time.perf_counter() - t_start
         timings.update(n=n, sr=sr, n_out=int(plan["n_out"]))
+        # ---- pass 2: resample tile by tile, compact, append
         t_start = time.perf_counter()
         written = 0
         t_read = t_dev = t_write = 0.0
@@ -1013,38 +1032,44 @@ def restore_file_streamed(audio_path, f0_hz=None, tolerance_st: float = 1.0,
                 lo = int(plan["base_int"][a]) - U
                 hi = int(plan["base_int"][b - 1]) + max_n + U + 2
                 rlo, rhi = max(0, lo), min(n, hi)
-                tr = time.perf_counter()
-                buf = reader.read(rlo, rhi - rlo)[:, channels]  # (span, C)
-                t_read += time.perf_counter() - tr
-                pad_s = span_fix - buf.shape[0]
-                if pad_s > 0:
-                    buf = np.pad(buf, ((0, pad_s), (0, 0)))
+                timing.count("respeeder.tiles")
+                with timing.span("respeeder.read"):
+                    tr = time.perf_counter()
+                    buf = reader.read(rlo, rhi - rlo)[:, channels]  # (span, C)
+                    t_read += time.perf_counter() - tr
+                    pad_s = span_fix - buf.shape[0]
+                    if pad_s > 0:
+                        buf = np.pad(buf, ((0, pad_s), (0, 0)))
                 td = time.perf_counter()
-                sig_dev = torch.as_tensor(np.ascontiguousarray(buf.T), device=dev)
-                # rows past nseg: no output (n = 0), speed 1
-                n_t = np.zeros(seg_tile, np.int32)
-                n_t[:nseg] = plan["n"][a:b]
-                bi_t = np.zeros(seg_tile, np.int32)
-                bi_t[:nseg] = plan["base_int"][a:b] - rlo
-                bf_t = np.zeros(seg_tile, np.float32)
-                bf_t[:nseg] = plan["base_frac"][a:b]
-                s_t = np.ones(seg_tile + 1, np.float32)
-                s_t[: nseg + 1] = speeds32[a: b + 1]
-                n_dev = torch.as_tensor(n_t, device=dev)
-                padded = run_banded_sinc(
-                    sig_dev, torch.as_tensor(s_t, device=dev), n_dev,
-                    torch.as_tensor(bi_t, device=dev), torch.as_tensor(bf_t, device=dev),
-                    max_n, nt, drift)
-                take = min(int(n_t.sum()), plan["n_out"] - written)
-                tile_out, _ = compact_padded_device(padded, n_dev, take)
-                tile_out = tile_out.T.contiguous().cpu().numpy()
+                with timing.span("respeeder.tile"):
+                    sig_dev = torch.as_tensor(np.ascontiguousarray(buf.T), device=dev)
+                    # rows past nseg: no output (n = 0), speed 1
+                    n_t = np.zeros(seg_tile, np.int32)
+                    n_t[:nseg] = plan["n"][a:b]
+                    bi_t = np.zeros(seg_tile, np.int32)
+                    bi_t[:nseg] = plan["base_int"][a:b] - rlo
+                    bf_t = np.zeros(seg_tile, np.float32)
+                    bf_t[:nseg] = plan["base_frac"][a:b]
+                    s_t = np.ones(seg_tile + 1, np.float32)
+                    s_t[: nseg + 1] = speeds32[a: b + 1]
+                    n_dev = torch.as_tensor(n_t, device=dev)
+                    padded = run_banded_sinc(
+                        sig_dev, torch.as_tensor(s_t, device=dev), n_dev,
+                        torch.as_tensor(bi_t, device=dev), torch.as_tensor(bf_t, device=dev),
+                        max_n, nt, drift)
+                    take = min(int(n_t.sum()), plan["n_out"] - written)
+                    tile_out, _ = compact_padded_device(padded, n_dev, take)
+                    tile_out = tile_out.T.contiguous().cpu().numpy()
                 t_dev += time.perf_counter() - td
-                tw = time.perf_counter()
-                writer.write(tile_out)
-                t_write += time.perf_counter() - tw
+                with timing.span("respeeder.write"):
+                    tw = time.perf_counter()
+                    writer.write(tile_out)
+                    t_write += time.perf_counter() - tw
                 written += take
                 if written >= plan["n_out"]:
                     break
+            with timing.span("respeeder.write"):
+                writer.close()
         timings["pass2_s"] = time.perf_counter() - t_start
         timings["pass2_read_s"] = t_read
         timings["pass2_device_dl_s"] = t_dev  # upload + compute + compaction + download
@@ -1084,7 +1109,8 @@ def restore_file_fast(audio_path, f0_hz=None, tolerance_st: float = 1.0,
             sinc_quality=sinc_quality, suffix=suffix, channel=channel,
             use_channels=use_channels, device=dev)
 
-    signal, sr, num_channels = audio_io.read_file(audio_path)
+    with timing.span("respeeder.read"):
+        signal, sr, num_channels = audio_io.read_file(audio_path)
     channels = list(use_channels) if use_channels else list(range(num_channels))
     if f0_hz is None:
         f0_hz = _probe_f0(signal[:, channel], sr)
@@ -1098,5 +1124,6 @@ def restore_file_fast(audio_path, f0_hz=None, tolerance_st: float = 1.0,
     out_dev, _ = compact_padded_device(
         padded, torch.as_tensor(plan["n"], device=dev), int(plan["n_out"]))
     out = out_dev.T.contiguous().cpu().numpy()
-    return audio_io.write_file(audio_path, out, sr, len(channels),
-                               suffix=f"_res{suffix}")
+    with timing.span("respeeder.write"):
+        return audio_io.write_file(audio_path, out, sr, len(channels),
+                                   suffix=f"_res{suffix}")
